@@ -1,0 +1,98 @@
+"""The port runs where JAX is not installed: no module of
+``jafpro_tpu_torch``, nor ``chip_smoke.py``, imports ``jax``, ``flax`` or
+``jafpro_tpu``; and its entry points never fall back to the CPU."""
+
+import ast
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import jafpro_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(jafpro_tpu_torch.__file__)
+FORBIDDEN = re.compile(r"^(jax|flax|jafpro_tpu)(\.|$)")
+
+
+def port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([PKG_DIR], "jafpro_tpu_torch."))
+
+
+def source_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG_DIR):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def imported_names(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_forbidden_pattern():
+    for name in ("jax", "jax.numpy", "flax.linen", "jafpro_tpu",
+                 "jafpro_tpu.ops.sampling"):
+        assert FORBIDDEN.match(name), name
+    for name in ("jafpro_tpu_torch", "jafpro_tpu_torch.ops", "jaxlib_x",
+                 "torch", "numpy"):
+        assert not FORBIDDEN.match(name), name
+
+
+def test_sources_import_no_jax():
+    files = source_files()
+    assert len(files) > 15
+    for path in files:
+        bad = [n for n in imported_names(path) if FORBIDDEN.match(n)]
+        assert not bad, (path, bad)
+
+
+def test_modules_import_with_jax_blocked():
+    """Import every port module and chip_smoke.py in a fresh interpreter in
+    which ``import jax`` / ``import jafpro_tpu`` fail."""
+    mods = port_modules()
+    assert "jafpro_tpu_torch.geometry.rasterizer" in mods
+    code = "\n".join([
+        "import importlib, sys",
+        "for name in ('jax', 'jaxlib', 'flax', 'jafpro_tpu'):",
+        "    sys.modules[name] = None",
+        f"for m in {mods!r}:",
+        "    importlib.import_module(m)",
+        "import chip_smoke",
+        "bad = [m for m in sys.modules if m.split('.')[0] in",
+        "       ('jax', 'flax', 'jafpro_tpu') and sys.modules[m] is not None]",
+        "assert not bad, bad",
+        "print('ok', len(sys.modules))",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_entry_points_refuse_missing_cuda(monkeypatch):
+    """With no CUDA, an entry point called without ``device`` raises
+    instead of running on the CPU."""
+    from jafpro_tpu_torch.config import Config
+    from jafpro_tpu_torch.device import resolve_device
+    from jafpro_tpu_torch.pipeline import JAFProPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    cfg = Config(image_size=32, part_size=16, num_parts=2, num_faces=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        JAFProPipeline(cfg)
+    assert resolve_device("cpu").type == "cpu"
