@@ -21,8 +21,9 @@ Phases, each of which raises on failure (nothing is caught):
    ``torch.Generator``. Drives ``VideoGenerator`` end to end with the
    kernel's launch count reset before and read after; checks shapes,
    finiteness, that the flow branch saw the mesh, and that the per-frame
-   schedule gives the same video; reports warm frames/s, peak memory and
-   the time of each stage. Then the same clip in bfloat16 (the ``Config``
+   schedule gives the same video; reports warm frames/s, peak memory and,
+   from one more clip with the generator's stage clock on, the device
+   time of each stage. Then the same clip in bfloat16 (the ``Config``
    default): checked outputs, frames/s and the distance from float32.
 
 Prints the kernels' JSON line, the card's name and power limit, and as
@@ -243,64 +244,22 @@ def phase_reference(seed: int) -> None:
         raise AssertionError("the card disagrees with the CPU reference")
 
 
-def stage_breakdown(pipe, clip: dict, card: str) -> None:
-    """Time the batched schedule's stages one by one on the clip (CUDA
-    events, median of 3 after a warm-up), outside the main-path run."""
-    from jafpro_tpu_torch.data.texture import (
-        build_texture_warp_lut, texture_warp_lut)
-    from jafpro_tpu_torch.geometry.flow import cal_bc_transform
-    from jafpro_tpu_torch.infer import normalize_batch
-    from jafpro_tpu_torch.pipeline import to_nchw
-
-    dev = pipe.device
-    c = normalize_batch({k: torch.as_tensor(v, device=dev)
-                         for k, v in clip.items()})
-    S, T = pipe.cfg.image_size, c["tgt_iuv255"].shape[0]
-    engine = pipe.flow_engine
-    chosen = c["chosen_frames"].long()
-    src = torch.argmin(torch.abs(torch.arange(T, device=dev)[:, None]
-                                 - chosen[None]), dim=1)
-    with torch.no_grad():
-        inpainted, _ = pipe.prepare_textures(
-            c["src_parts"], c["ref_mask"], c["src_mask_parts"])
-        bg = pipe.bg(to_nchw(c["bg_incomplete"]), S)
-        lut = build_texture_warp_lut(inpainted)
-        warped = to_nchw(texture_warp_lut(lut, c["tgt_iuv255"]))
-        refined, fg = pipe.refine(warped, S)
-        fusion = refined * fg + bg * (1.0 - fg)
-        f2pts = engine.project_faces(c["cams"][chosen], c["verts"][chosen])
-        f2pts = f2pts[..., :2] * f2pts.new_tensor([1.0, -1.0])
-        src_imgs = to_nchw(c["src_imgs"])
-        iuv, mask = to_nchw(c["tgt_iuv"]), to_nchw(c["smpl_mask"])
-
-        def flow():
-            _, fim, wim = engine.render_fim_wim(c["cams"], c["verts"])
-            return engine.warp_image(src_imgs[src], cal_bc_transform(
-                f2pts[src], fim, wim))
-
-        tsf = flow()
-        stages = {
-            "accumulate+inpaint": lambda: pipe.prepare_textures(
-                c["src_parts"], c["ref_mask"], c["src_mask_parts"]),
-            "background CRN": lambda: pipe.bg(to_nchw(c["bg_incomplete"]), S),
-            "texture LUT build+warp": lambda: texture_warp_lut(
-                build_texture_warp_lut(inpainted), c["tgt_iuv255"]),
-            "refine CRN": lambda: pipe.refine(warped, S),
-            "flow branch": flow,
-            "propagation": lambda: pipe.pro(fusion, tsf, iuv, mask,
-                                            per_sample_norm=True),
-        }
-        ms = {}
-        for name, fn in stages.items():
-            fn()
-            reps = []
-            for _ in range(3):
-                reps.append(cuda_time_ms(fn, 1))
-            ms[name] = statistics.median(reps)
+def stage_breakdown(gen, clip: dict, card: str) -> None:
+    """One more main-path clip with the generator's stage clock on (CUDA
+    events around each stage inside ``VideoGenerator``)."""
+    gen.time_stages = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen(clip)
+    torch.cuda.synchronize()
+    clip_ms = 1e3 * (time.perf_counter() - t0)
+    gen.time_stages = False
+    ms = gen.stage_ms
     total = sum(ms.values())
     log("[breakdown] " + "; ".join(
-        f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in ms.items())
-        + f"; sum {total:.2f} ms per clip [{card}]")
+        f"{k} {v:.2f} ms ({100 * v / total:.1f}%)"
+        for k, v in sorted(ms.items(), key=lambda kv: -kv[1]))
+        + f"; sum {total:.2f} ms of a {clip_ms:.2f} ms clip [{card}]")
 
 
 def run_clip(gen, clip: dict, T: int, S: int, what: str, card: str) -> tuple:
@@ -397,7 +356,7 @@ def main(argv=None) -> int:
     log(f"[slice] per-frame schedule vs batched: max abs {d:.3e}")
     if not d <= 1e-3:
         raise AssertionError("the output depends on frame_batch/flow_mode")
-    stage_breakdown(pipe, clip, card)
+    stage_breakdown(gen, clip, card)
     del pipe, gen, per_frame
 
     # the Config default compute dtype (bfloat16), same seeded weights
@@ -415,10 +374,7 @@ def main(argv=None) -> int:
         "launches": launches, "max_abs_err": res["wim_max_abs"],
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-        "library_ms": None,
-        "fim_mismatch": res["fim_mismatch"],
-        "wim_max_abs": res["wim_max_abs"], "kernel_ms": kernel_ms,
-        "launches_per_clip": launches,
+        "library_ms": None, "fim_mismatch": res["fim_mismatch"],
     }]
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -37,8 +37,7 @@ class PreparedFaces(NamedTuple):
     extent: torch.Tensor  # (B, n_blocks, 4): front-face ymin, ymax, xmin, xmax
 
 
-def prepare_faces(face_verts: torch.Tensor, image_size: int,
-                  block: int = FACE_BLOCK) -> PreparedFaces:
+def prepare_faces(face_verts: torch.Tensor, image_size: int) -> PreparedFaces:
     """Per-face prep shared by the kernel and the plain version
     (``rasterizer_pallas.py:141-174``): back-face flag, the inverse matrix
     of the pixel-space triangle divided by its determinant, padding to
@@ -62,8 +61,8 @@ def prepare_faces(face_verts: torch.Tensor, image_size: int,
     denom = (p2x * (p0y - p1y) + p0x * (p1y - p2y) + p1x * (p2y - p0y))
     inv = inv / denom[..., None]
 
-    n_blocks = -(-F // block)
-    pad = n_blocks * block - F
+    n_blocks = -(-F // FACE_BLOCK)
+    pad = n_blocks * FACE_BLOCK - F
     rec = torch.cat([x, y, z, inv, front.float()[..., None]], dim=-1)
     if pad:
         filler = torch.zeros(B, pad, NF, dtype=rec.dtype, device=rec.device)
@@ -80,7 +79,7 @@ def prepare_faces(face_verts: torch.Tensor, image_size: int,
         torch.where(front, ry.amax(-1), -inf),
         torch.where(front, rx.amin(-1), inf),
         torch.where(front, rx.amax(-1), -inf),
-    ], dim=-1).reshape(B, n_blocks, block, 4)
+    ], dim=-1).reshape(B, n_blocks, FACE_BLOCK, 4)
     extent = torch.stack([
         ext[..., 0].amin(-1), ext[..., 1].amax(-1),
         ext[..., 2].amin(-1), ext[..., 3].amax(-1)], dim=-1)
@@ -105,12 +104,12 @@ def _winner_weights(inv: torch.Tensor, idx: torch.Tensor, xi: torch.Tensor,
 
 def rasterize_prepared_reference(
     prep: PreparedFaces, image_size: int, near: float, far: float,
-    flip_y: bool = True, chunk: int = 0,
+    flip_y: bool = True,
 ) -> tuple:
     """Plain PyTorch z-buffer over prepared faces: dense over every face,
-    ``chunk`` faces at a time (0: as many as keep a (pixels x chunk)
-    temporary near 16M elements), per-(pixel, face) arithmetic as the
-    Pallas kernel's. Returns (fim (B,S,S) int32, wim (B,S,S,3))."""
+    as many faces at a time as keep a (pixels x faces) temporary near 16M
+    elements, per-(pixel, face) arithmetic as the Pallas kernel's.
+    Returns (fim (B,S,S) int32, wim (B,S,S,3))."""
     S = image_size
     faces = prep.faces
     B, _, F_pad = faces.shape
@@ -125,7 +124,7 @@ def rasterize_prepared_reference(
     xp = ((2.0 * xi + 1.0 - S) / s_t)[:, None]
     yp = ((2.0 * yi + 1.0 - S) / s_t)[:, None]
     xic, yic = xi[:, None], yi[:, None]
-    K = chunk or max(1, min(F_pad, (1 << 24) // P))
+    K = max(1, min(F_pad, (1 << 24) // P))
     far_t = torch.tensor(far, dtype=torch.float32, device=dev)
 
     fims, wims = [], []

@@ -16,7 +16,9 @@ frame group, with the same output.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Dict
 
 import numpy as np
@@ -64,17 +66,58 @@ def _encode_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp((x * 0.5 + 0.5) * 255.0, 0, 255).to(torch.uint8)
 
 
+class _StageClock:
+    """Times named stages of one call: CUDA events on a CUDA device, the
+    host clock elsewhere. A stage entered more than once adds up."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.spans = []
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if self.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+        else:
+            start = time.perf_counter()
+            yield
+            end = time.perf_counter()
+        self.spans.append((name, start, end))
+
+    def totals_ms(self) -> Dict[str, float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+        out: Dict[str, float] = {}
+        for name, start, end in self.spans:
+            ms = start.elapsed_time(end) if self.cuda else 1e3 * (end - start)
+            out[name] = out.get(name, 0.0) + ms
+        return out
+
+
+def _no_clock(name: str):
+    return contextlib.nullcontext()
+
+
 @dataclasses.dataclass
 class VideoGenerator:
     """``warp_mode``: "lut" warps through the per-clip integer-UV table
     (exact for uint8-valued IUV), "gather" through the 4-tap atlas sample.
-    ``output_uint8`` encodes the four outputs to uint8 on the device."""
+    ``output_uint8`` encodes the four outputs to uint8 on the device.
+    ``time_stages`` times each stage of a call (CUDA events on the card)
+    into ``stage_ms`` (ms per stage, summed over frame groups)."""
 
     pipe: JAFProPipeline
     frame_batch: int = 1
     flow_mode: str = "scan"   # "scan" | "batch"
     warp_mode: str = "lut"    # "lut" | "gather"
     output_uint8: bool = False
+    time_stages: bool = False
+    stage_ms: Dict[str, float] = dataclasses.field(
+        default_factory=dict, init=False)
 
     _CLIP_FIELDS = (
         "src_parts", "src_mask_parts", "ref_mask", "bg_incomplete",
@@ -103,16 +146,22 @@ class VideoGenerator:
         dev = self.pipe.device
         clip = {k: torch.as_tensor(v, device=dev)
                 for k, v in clip.items() if k in self._CLIP_FIELDS}
+        clock = _StageClock(dev) if self.time_stages else _no_clock
         with torch.no_grad():
-            return self._generate(normalize_batch(clip))
+            result = self._generate(normalize_batch(clip), clock)
+        if self.time_stages:
+            self.stage_ms = clock.totals_ms()
+        return result
 
-    def _generate(self, clip: Dict[str, torch.Tensor]):
+    def _generate(self, clip: Dict[str, torch.Tensor], stage):
         pipe = self.pipe
         engine = pipe.flow_engine
         S = pipe.cfg.image_size
-        inpainted, _ = pipe.prepare_textures(
-            clip["src_parts"], clip["ref_mask"], clip["src_mask_parts"])
-        bg_out = pipe.bg(to_nchw(clip["bg_incomplete"]), S)  # (1, 3, S, S)
+        with stage("accumulate+inpaint"):
+            inpainted, _ = pipe.prepare_textures(
+                clip["src_parts"], clip["ref_mask"], clip["src_mask_parts"])
+        with stage("background CRN"):
+            bg_out = pipe.bg(to_nchw(clip["bg_incomplete"]), S)  # (1,3,S,S)
 
         chosen = clip["chosen_frames"].long()         # (R,)
         src_imgs = to_nchw(clip["src_imgs"])          # (R, 3, S, S)
@@ -120,10 +169,12 @@ class VideoGenerator:
         T = clip["tgt_iuv255"].shape[0]
 
         # the R source poses need projected face vertices only
-        pro_index = torch.clamp(chosen, 0, cams.shape[0] - 1)
-        src_f2pts_all = engine.project_faces(
-            cams[pro_index], verts[pro_index])[..., 0:2]
-        src_f2pts_all = src_f2pts_all * src_f2pts_all.new_tensor([1.0, -1.0])
+        with stage("flow branch"):
+            pro_index = torch.clamp(chosen, 0, cams.shape[0] - 1)
+            src_f2pts_all = engine.project_faces(
+                cams[pro_index], verts[pro_index])[..., 0:2]
+            src_f2pts_all = src_f2pts_all * src_f2pts_all.new_tensor(
+                [1.0, -1.0])
 
         def nearest_ref(i: torch.Tensor) -> torch.Tensor:
             return torch.argmin(torch.abs(i[:, None] - chosen[None, :]), dim=1)
@@ -132,10 +183,11 @@ class VideoGenerator:
             flow = cal_bc_transform(src_f2pts_all[src_pro], fim, wim)
             return engine.warp_image(src_imgs[src_pro], flow)
 
-        if self.warp_mode == "lut":
-            warp_src = build_texture_warp_lut(inpainted)
-        else:
-            warp_src = parts_to_atlas(inpainted)
+        with stage("texture warp"):
+            if self.warp_mode == "lut":
+                warp_src = build_texture_warp_lut(inpainted)
+            else:
+                warp_src = parts_to_atlas(inpainted)
 
         fb = self.frame_batch
         while T % fb:  # largest divisor of T not above frame_batch
@@ -143,27 +195,33 @@ class VideoGenerator:
 
         frame_ids = torch.arange(T, device=chosen.device)
         if self.flow_mode == "batch":
-            _, fim_all, wim_all = engine.render_fim_wim(cams, verts)
-            tsf_all = bc_warp(nearest_ref(frame_ids), fim_all, wim_all)
+            with stage("flow branch"):
+                _, fim_all, wim_all = engine.render_fim_wim(cams, verts)
+                tsf_all = bc_warp(nearest_ref(frame_ids), fim_all, wim_all)
 
         outs = {"final": [], "coarse": [], "mask": [], "tsf": []}
         for t0 in range(0, T, fb):
             i = frame_ids[t0:t0 + fb]
             iuv255 = clip["tgt_iuv255"][t0:t0 + fb]
-            if self.warp_mode == "lut":
-                warped = texture_warp_lut(warp_src, iuv255)
-            else:
-                warped = texture_warp_atlas(warp_src, iuv255)
-            refined, fg_mask = pipe.refine(to_nchw(warped), S)
-            fusion = refined * fg_mask + bg_out * (1.0 - fg_mask)
+            with stage("texture warp"):
+                if self.warp_mode == "lut":
+                    warped = texture_warp_lut(warp_src, iuv255)
+                else:
+                    warped = texture_warp_atlas(warp_src, iuv255)
+            with stage("refine CRN+fuse"):
+                refined, fg_mask = pipe.refine(to_nchw(warped), S)
+                fusion = refined * fg_mask + bg_out * (1.0 - fg_mask)
             if self.flow_mode == "batch":
                 tsf = tsf_all[t0:t0 + fb]
             else:
-                _, fim, wim = engine.render_fim_wim(cams[i], verts[i])
-                tsf = bc_warp(nearest_ref(i), fim, wim)
-            out = pipe.pro(fusion, tsf, to_nchw(clip["tgt_iuv"][t0:t0 + fb]),
-                           to_nchw(clip["smpl_mask"][t0:t0 + fb]),
-                           per_sample_norm=True)
+                with stage("flow branch"):
+                    _, fim, wim = engine.render_fim_wim(cams[i], verts[i])
+                    tsf = bc_warp(nearest_ref(i), fim, wim)
+            with stage("propagation"):
+                out = pipe.pro(fusion, tsf,
+                               to_nchw(clip["tgt_iuv"][t0:t0 + fb]),
+                               to_nchw(clip["smpl_mask"][t0:t0 + fb]),
+                               per_sample_norm=True)
             outs["final"].append(out["pred_target"])
             outs["coarse"].append(fusion)
             outs["mask"].append(out["weight"])

@@ -85,20 +85,16 @@ class JAFProPipeline(nn.Module):
 
     def generate_frame(self, inpainted_parts, bg_output, tgt_iuv255, tgt_iuv,
                        smpl_mask, prev_img, prev_cam, prev_verts, tgt_cam,
-                       tgt_verts, tsf: Optional[torch.Tensor] = None
-                       ) -> Dict[str, torch.Tensor]:
+                       tgt_verts) -> Dict[str, torch.Tensor]:
         """One batch of frames, channels-last in and out (see the JAX
-        ``generate_frame``); ``tsf`` skips the flow branch when given."""
+        ``generate_frame``)."""
         S = self.cfg.image_size
         warped = texture_warp_atlas(parts_to_atlas(inpainted_parts),
                                     tgt_iuv255)
         refined, fg_mask = self.refine(to_nchw(warped), S)
         fusion = refined * fg_mask + to_nchw(bg_output) * (1.0 - fg_mask)
-        if tsf is None:
-            tsf_c = self.flow_engine(to_nchw(prev_img), prev_cam, prev_verts,
-                                     tgt_cam, tgt_verts)
-        else:
-            tsf_c = to_nchw(tsf)
+        tsf_c = self.flow_engine(to_nchw(prev_img), prev_cam, prev_verts,
+                                 tgt_cam, tgt_verts)
         out = self.pro(fusion, tsf_c, to_nchw(tgt_iuv), to_nchw(smpl_mask))
         return {
             "final": to_nhwc(out["pred_target"]),

@@ -212,3 +212,19 @@ def test_generator_rejects_unknown_modes(world):
                {"frame_batch": 0}):
         with pytest.raises(ValueError):
             VideoGenerator(world["tpipe"], **kw)
+
+
+@pytest.mark.parametrize("flow_mode", ["scan", "batch"])
+def test_stage_clock_times_every_stage(world, flow_mode):
+    """The stage clock leaves the output as it is and times each stage."""
+    gen = VideoGenerator(world["tpipe"], frame_batch=2, flow_mode=flow_mode)
+    plain = gen(world["clip"])
+    assert gen.stage_ms == {}
+    gen.time_stages = True
+    timed = gen(world["clip"])
+    for k in OUT_KEYS:
+        np.testing.assert_array_equal(timed[k].numpy(), plain[k].numpy())
+    assert set(gen.stage_ms) == {
+        "accumulate+inpaint", "background CRN", "texture warp",
+        "refine CRN+fuse", "flow branch", "propagation"}
+    assert all(v >= 0.0 for v in gen.stage_ms.values())
