@@ -10,9 +10,15 @@ Phases, each of which raises on failure (nothing is caught):
 2. Build: compile ``jafpro_tpu_torch/csrc/rasterizer.cu`` with nvcc.
 3. Kernel vs plain version on the card: random scenes (back faces, faces
    crossing near and far, coplanar z-fighting pairs, degenerate faces, a
-   face count that is not a multiple of 256) and the full 30-frame,
-   13776-face clip mesh. Face ids must be equal and weights within 1e-5.
-   The kernel, its plain version and the data-dependent bound are timed.
+   face count that is not a multiple of 256), the full 30-frame,
+   13776-face clip mesh with its faces in the mesh's own (banded) order
+   and in a seeded random order, and a scene of points, collinear faces,
+   near-collinear slivers (also alone in blocks whose box ends at a tile
+   border) and faces crossing near and far at 256x256.
+   Face ids must be equal and weights within 1e-5. The kernel (on both
+   face orders), its plain version and the data-dependent bound are
+   timed; the faces the kernel's cull keeps per tile are counted with
+   its plain form (``face_tile_keep``).
 4. Reference: a small clip through the generator on the card and on the
    CPU (where the rasterizer is the plain version) must agree within 1e-3.
 5. The slice at full width: ``Config()`` widths in float32 (TF32 off),
@@ -142,6 +148,26 @@ def bbox_pairs(face_verts: torch.Tensor, S: int) -> int:
     return int((span(x) * span(y) * front).sum().item())
 
 
+def survivor_stats(prep, fim: torch.Tensor, S: int) -> dict:
+    """Faces the kernel tests per 16x16 tile (``face_tile_keep``): mean and
+    max over body tiles (tiles with a covered pixel), and the (pixel, face)
+    pairs tested over the whole batch."""
+    from jafpro_tpu_torch.geometry import rasterizer as R
+
+    keep = R.face_tile_keep(prep, S).sum(-1)                 # (B, Ty, Tx)
+    t = R.TILE
+    n = keep.shape[1]
+    cov = torch.zeros(fim.shape[0], n * t, n * t, dtype=torch.bool,
+                      device=fim.device)
+    cov[:, :S, :S] = torch.flip(fim, dims=[1]) >= 0         # unflipped rows
+    body = cov.reshape(-1, n, t, n, t).any(4).any(2)
+    rows = torch.clamp(S - t * torch.arange(n, device=fim.device), max=t)
+    pix = rows[:, None] * rows[None, :]                      # tile pixels
+    per_body = keep[body].float()
+    return {"mean": float(per_body.mean()), "max": int(per_body.max()),
+            "pairs": int((keep * pix).sum())}
+
+
 def compare_kernel(face_verts: torch.Tensor, S: int, what: str) -> dict:
     from jafpro_tpu_torch.geometry import rasterizer as R
 
@@ -159,7 +185,8 @@ def compare_kernel(face_verts: torch.Tensor, S: int, what: str) -> dict:
         raise AssertionError(f"kernel disagrees with plain version ({what})")
     if cover <= 0.01:
         raise AssertionError(f"scene {what} covers no pixels")
-    return {"prep": prep, "fim_mismatch": mismatch, "wim_max_abs": werr}
+    return {"prep": prep, "fim": fim, "fim_mismatch": mismatch,
+            "wim_max_abs": werr}
 
 
 def make_clip(seed: int, T: int, R: int, S: int, p: int, P: int):
@@ -167,15 +194,10 @@ def make_clip(seed: int, T: int, R: int, S: int, p: int, P: int):
     vertex and face counts (an upright ellipsoid at z = 2, jittered per
     frame), and IUV part ids confined to the body's columns."""
     from jafpro_tpu_torch.geometry.projection import project_to_view_np
-    from jafpro_tpu_torch.utils.meshproxy import uv_sphere
+    from jafpro_tpu_torch.utils.meshproxy import ellipsoid_clip
 
-    sphere, faces = uv_sphere()
+    verts, cams, faces = ellipsoid_clip(T, seed)
     rng = np.random.RandomState(seed)
-    base = sphere * np.float32([0.35, 0.9, 0.35])
-    verts = (base[None] + rng.normal(scale=0.01, size=(T, 1, 3))).astype(
-        np.float32)
-    verts[..., 2] += 2.0
-    cams = np.tile(np.float32([[1.0, 0.0, 0.0]]), (T, 1))
     iuv = np.zeros((T, S, S, 3), np.float32)
     iuv[..., 0] = rng.randint(0, P + 1, (T, S, S))
     iuv[..., 1:] = rng.randint(0, 256, (T, S, S, 2))
@@ -201,6 +223,71 @@ def make_clip(seed: int, T: int, R: int, S: int, p: int, P: int):
     clip = {k: np.asarray(v, np.float32) for k, v in clip.items()}
     clip["chosen_frames"] = np.linspace(0, T - 1, R).round().astype(np.int32)
     return clip, faces
+
+
+def phase_kernel(seed: int, clip: dict, faces: np.ndarray, S: int,
+                 dev: torch.device, card: str) -> dict:
+    """Kernel vs plain version on every phase-3 scene; kernel times on both
+    face orders of the clip mesh, the plain time, the bound and the faces
+    the cull keeps per tile. Returns the kernel's keys of the JSON line
+    that ``main`` does not know."""
+    from jafpro_tpu_torch.geometry import rasterizer as R
+    from jafpro_tpu_torch.geometry.flow import SMPLFlowEngine
+    from jafpro_tpu_torch.utils.meshproxy import ellipsoid_clip, sliver_scene
+
+    rng = np.random.RandomState(seed)
+    for i, (n, s) in enumerate(((1000, 256), (3001, 256), (517, 100))):
+        fv = np.stack([random_scene(rng, n) for _ in range(2)])
+        compare_kernel(torch.from_numpy(fv).to(dev), s, f"random scene {i}")
+    cams = torch.from_numpy(clip["cams"]).to(dev)
+    verts = torch.from_numpy(clip["verts"]).to(dev)
+    # the mesh's own face order (ring by ring), and a seeded random order
+    shuffled = ellipsoid_clip(clip["verts"].shape[0], seed, shuffle=True)[2]
+    fv_clip, fv_shuf = (
+        SMPLFlowEngine(faces=f, image_size=S).project_faces(
+            cams, verts).contiguous() for f in (faces, shuffled))
+    fv_sliver = torch.from_numpy(np.stack([
+        sliver_scene(S, seed=seed + i) for i in range(2)])).to(dev)
+    scenes = {
+        "banded": (fv_clip, "clip mesh"),
+        "shuffled": (fv_shuf, "clip mesh, shuffled face order"),
+        "slivers": (fv_sliver, "points, collinear faces and slivers"),
+    }
+    res = {k: compare_kernel(fv, S, what) for k, (fv, what) in scenes.items()}
+    prep, prep_shuf = res["banded"]["prep"], res["shuffled"]["prep"]
+    kernel_ms = cuda_time_ms(
+        lambda: R.rasterize_prepared_cuda(prep, S, 0.1, 25.0), 20)
+    kernel_shuf_ms = cuda_time_ms(
+        lambda: R.rasterize_prepared_cuda(prep_shuf, S, 0.1, 25.0), 20)
+    wrapper_ms = cuda_time_ms(lambda: R.rasterize_fim_wim(fv_clip, S), 20)
+    plain_ms = cuda_time_ms(
+        lambda: R.rasterize_prepared_reference(prep, S, 0.1, 25.0), 1)
+    B, F = fv_clip.shape[:2]
+    pairs = bbox_pairs(fv_clip, S)
+    dense_pairs = B * S * S * F
+    n_bytes = fv_clip.numel() * 4 + B * S * S * (4 + 12)
+    ops_s = OPS_PER_PAIR * pairs / PEAK_FP32_FLOPS
+    bytes_s = n_bytes / PEAK_BYTES_PER_S
+    bound_ms = 1e3 * max(ops_s, bytes_s)
+    log(f"[kernel] clip: kernel {kernel_ms:.4f} ms (shuffled face order "
+        f"{kernel_shuf_ms:.4f} ms), wrapper (prep+kernel) "
+        f"{wrapper_ms:.4f} ms, plain {plain_ms:.2f} ms per 30-pose clip; "
+        f"bbox pairs {pairs} of dense {dense_pairs} "
+        f"({pairs / dense_pairs:.5f}); bound {bound_ms:.5f} ms "
+        f"({'operations' if ops_s >= bytes_s else 'bytes'}) [{card}]")
+    for key, (fv, _) in scenes.items():
+        st = survivor_stats(res[key]["prep"], res[key]["fim"], S)
+        log(f"[kernel] {key}: faces tested per body tile mean "
+            f"{st['mean']:.2f} max {st['max']}; pairs tested {st['pairs']} "
+            f"against {bbox_pairs(fv, S)} bbox pairs")
+    return {
+        "max_abs_err": max(r["wim_max_abs"] for r in res.values()),
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        "library_ms": None,
+        "fim_mismatch": max(r["fim_mismatch"] for r in res.values()),
+        "ms_shuffled": kernel_shuf_ms,
+    }
 
 
 def check_outputs(out: dict, T: int, S: int, what: str) -> None:
@@ -302,37 +389,12 @@ def main(argv=None) -> int:
         cfg.image_size, cfg.part_size, cfg.num_parts
 
     # ---- phase 3: kernel vs plain version ----
-    rng = np.random.RandomState(args.seed)
-    for i, (n, s) in enumerate(((1000, 256), (3001, 256), (517, 100))):
-        fv = np.stack([random_scene(rng, n) for _ in range(2)])
-        compare_kernel(torch.from_numpy(fv).to(dev), s, f"random scene {i}")
     clip, faces = make_clip(args.seed, T, NR, S, p, P)
-    engine = SMPLFlowEngine(faces=faces, image_size=S)
     if faces.shape != (cfg.num_faces, 3) or clip["verts"].shape[1] != (
             cfg.num_verts):
         raise AssertionError("the clip mesh does not have SMPL's counts")
-    fv_clip = engine.project_faces(
-        torch.from_numpy(clip["cams"]).to(dev),
-        torch.from_numpy(clip["verts"]).to(dev)).contiguous()
-    res = compare_kernel(fv_clip, S, "clip mesh (30 poses)")
-    prep = res["prep"]
-    kernel_ms = cuda_time_ms(
-        lambda: R.rasterize_prepared_cuda(prep, S, 0.1, 25.0), 20)
-    wrapper_ms = cuda_time_ms(lambda: R.rasterize_fim_wim(fv_clip, S), 20)
-    plain_ms = cuda_time_ms(
-        lambda: R.rasterize_prepared_reference(prep, S, 0.1, 25.0), 1)
-    B, F = fv_clip.shape[:2]
-    pairs = bbox_pairs(fv_clip, S)
-    dense_pairs = B * S * S * F
-    n_bytes = fv_clip.numel() * 4 + B * S * S * (4 + 12)
-    ops_s = OPS_PER_PAIR * pairs / PEAK_FP32_FLOPS
-    bytes_s = n_bytes / PEAK_BYTES_PER_S
-    bound_ms = 1e3 * max(ops_s, bytes_s)
-    log(f"[kernel] clip: kernel {kernel_ms:.4f} ms, wrapper (prep+kernel) "
-        f"{wrapper_ms:.4f} ms, plain {plain_ms:.2f} ms per 30-pose clip; "
-        f"bbox pairs {pairs} of dense {dense_pairs} "
-        f"({pairs / dense_pairs:.5f}); bound {bound_ms:.5f} ms "
-        f"({'operations' if ops_s >= bytes_s else 'bytes'}) [{card}]")
+    engine = SMPLFlowEngine(faces=faces, image_size=S)
+    k = phase_kernel(args.seed, clip, faces, S, dev, card)
 
     # ---- phase 4: small clip, card vs CPU ----
     phase_reference(args.seed)
@@ -371,11 +433,7 @@ def main(argv=None) -> int:
     kernels = [{
         "name": "rasterize_fim_wim", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": res["wim_max_abs"],
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-        "library_ms": None, "fim_mismatch": res["fim_mismatch"],
-    }]
+        "launches": launches, **k}]
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,8 +17,9 @@ go to the lowest face id.
 Both versions start from the same per-face prep (``prepare_faces``) and
 evaluate every per-(pixel, face) expression in the Pallas kernel's order,
 so on the card their face ids agree bit for bit. The kernel skips face
-blocks whose front-face bounding box holds no pixel centre of its tile;
-the plain version tests every face.
+blocks whose cull box holds no pixel centre of its tile and then culls the
+faces of a block one by one (``face_tile_keep`` is the plain form of both
+culls); the plain version tests every face.
 """
 
 from __future__ import annotations
@@ -34,14 +35,56 @@ NF = 19           # floats per face record (csrc/rasterizer.cu)
 
 class PreparedFaces(NamedTuple):
     faces: torch.Tensor   # (B, NF, F_pad): x0..2, y0..2, z0..2, inv[9], valid
-    extent: torch.Tensor  # (B, n_blocks, 4): front-face ymin, ymax, xmin, xmax
+    extent: torch.Tensor  # (B, n_blocks, 4): cull box ymin, ymax, xmin, xmax
+
+
+TILE = 16                  # pixels per side of the kernel's tile (one CTA)
+REACH = 2.0 ** -18         # 32 float32 epsilons: the cull's reach factor
+
+
+def face_cull_box(x: torch.Tensor, y: torch.Tensor, image_size: int) -> tuple:
+    """The box outside which a face's float edge tests accept no pixel
+    centre: the kernel's per-face cull (``keep_face`` in
+    ``csrc/rasterizer.cu``), value for value. x, y: (..., 3)
+    clip-space vertex coords. Returns (xlo, xhi, ylo, yhi).
+
+    In float the edge tests accept a point outside the exact triangle only
+    within 2*err*W / (2A) of the triangle's box, where err <= ~6 eps (1 + M)
+    W is their rounding error (M the largest |coordinate|, W the larger side
+    of the box) and 2A the doubled area (|a - b|, the two products of the
+    front test), so within 12 eps (1 + M) W^2 / (2A). The box is widened by
+    one pixel (2/S) plus r = REACH (1 + M) W^2 / |a - b|, 8/3 of that. A
+    face with r > 4 (wider than the clip square: slivers whose area is
+    rounding error, zero-area faces, which the edge tests accept all along
+    their line, and a NaN) gets an unbounded box."""
+    S = image_size
+    # 2/S as the kernel's float32 quotient, as a Python scalar: a scalar
+    # tensor made on the card would cost a blocking host-to-device copy
+    m = float(torch.tensor(2.0) / torch.tensor(float(S)))
+    # the kernel's values in fewer launches (min, max and negation are
+    # exact; prepare_faces runs this on the main path)
+    xmin, xmax = torch.aminmax(x, dim=-1)
+    ymin, ymax = torch.aminmax(y, dim=-1)
+    x0, x1, x2 = x.unbind(-1)
+    y0, y1, y2 = y.unbind(-1)
+    a = (y2 - y0) * (x1 - x0)
+    b = (y1 - y0) * (x2 - x0)
+    M = torch.maximum(torch.maximum(-xmin, xmax), torch.maximum(-ymin, ymax))
+    W = torch.maximum(xmax - xmin, ymax - ymin)
+    r = REACH * (1.0 + M) * W * W / (a - b).abs()
+    w = torch.where(r <= 4.0, m + r, float("inf"))
+    return xmin - w, xmax + w, ymin - w, ymax + w
 
 
 def prepare_faces(face_verts: torch.Tensor, image_size: int) -> PreparedFaces:
     """Per-face prep shared by the kernel and the plain version
     (``rasterizer_pallas.py:141-174``): back-face flag, the inverse matrix
     of the pixel-space triangle divided by its determinant, padding to
-    whole blocks, and per-block front-face bounding boxes."""
+    whole blocks, and per-block cull boxes for the kernel's block skip.
+
+    A block's cull box holds the ``face_cull_box`` of each of its front
+    faces: the Pallas kernel's block box (the faces' exact boxes) can miss
+    pixels that a sliver's float edge tests accept beyond its box."""
     S = image_size
     B, F = face_verts.shape[:2]
     fv = face_verts.float()
@@ -71,20 +114,51 @@ def prepare_faces(face_verts: torch.Tensor, image_size: int) -> PreparedFaces:
         rec = torch.cat([rec, filler], dim=1)
         front = torch.cat([front, torch.zeros(
             B, pad, dtype=torch.bool, device=front.device)], dim=1)
-    ry = rec[..., 3:6]
-    rx = rec[..., 0:3]
-    inf = torch.tensor(float("inf"), device=rec.device)
+    xlo, xhi, ylo, yhi = face_cull_box(rec[..., 0:3], rec[..., 3:6], S)
+    inf = float("inf")
     ext = torch.stack([
-        torch.where(front, ry.amin(-1), inf),
-        torch.where(front, ry.amax(-1), -inf),
-        torch.where(front, rx.amin(-1), inf),
-        torch.where(front, rx.amax(-1), -inf),
+        torch.where(front, ylo, inf), torch.where(front, yhi, -inf),
+        torch.where(front, xlo, inf), torch.where(front, xhi, -inf),
     ], dim=-1).reshape(B, n_blocks, FACE_BLOCK, 4)
     extent = torch.stack([
         ext[..., 0].amin(-1), ext[..., 1].amax(-1),
         ext[..., 2].amin(-1), ext[..., 3].amax(-1)], dim=-1)
     return PreparedFaces(rec.transpose(1, 2).contiguous(),
                          extent.contiguous())
+
+
+def face_tile_keep(prep: PreparedFaces, image_size: int) -> torch.Tensor:
+    """The faces the kernel tests in each ``TILE`` x ``TILE`` pixel tile:
+    (B, n_tiles_y, n_tiles_x, F_pad) bool, tiles in unflipped row order.
+
+    Plain form of the kernel's two culls (``csrc/rasterizer.cu``,
+    ``next_block`` and ``keep_face``): a face is tested if its block's cull
+    box (``prep.extent``) holds a pixel centre of the tile, and the face is
+    valid and its ``face_cull_box`` holds one too."""
+    S = image_size
+    faces, extent = prep.faces, prep.extent
+    dev = faces.device
+    s_t = torch.tensor(float(S), device=dev)
+    lo = torch.arange(0, S, TILE, device=dev)
+    hi = torch.clamp(lo + TILE - 1, max=S - 1)
+    c_lo = ((2.0 * lo.float() + 1.0 - S) / s_t)[None, :, None]   # (1, T, 1)
+    c_hi = ((2.0 * hi.float() + 1.0 - S) / s_t)[None, :, None]
+
+    # next_block: the block's cull box [ymin, ymax, xmin, xmax]
+    e = extent[:, None]                                           # (B,1,nb,4)
+    blk_y = (e[..., 1] >= c_lo) & (e[..., 0] <= c_hi)             # (B,T,nb)
+    blk_x = (e[..., 3] >= c_lo) & (e[..., 2] <= c_hi)
+    blk = blk_y[:, :, None] & blk_x[:, None, :]                   # (B,Ty,Tx,nb)
+    blk = blk.repeat_interleave(FACE_BLOCK, dim=-1)
+
+    # keep_face
+    xlo, xhi, ylo, yhi = (t[:, None] for t in face_cull_box(
+        faces[:, 0:3].transpose(1, 2), faces[:, 3:6].transpose(1, 2), S))
+    valid = faces[:, 18, None] > 0                                # (B,1,F)
+    hit_x = (xhi >= c_lo) & (xlo <= c_hi)                         # (B,T,F)
+    hit_y = (yhi >= c_lo) & (ylo <= c_hi)
+    hit = hit_y[:, :, None] & hit_x[:, None, :]                   # (B,Ty,Tx,F)
+    return blk & valid[:, None] & hit
 
 
 def _winner_weights(inv: torch.Tensor, idx: torch.Tensor, xi: torch.Tensor,

@@ -89,3 +89,98 @@ def uv_sphere(rings: int = 84, segments: int = 82) -> tuple:
     for s in range(segments):
         faces.append([bottom, vid(rings - 1, s), vid(rings - 1, s + 1)])
     return verts.astype(np.float32), np.asarray(faces, np.int32)
+
+
+def ellipsoid_clip(T: int, seed: int = 0, shuffle: bool = False) -> tuple:
+    """The clip mesh of the port's kernel checks: ``uv_sphere()`` (SMPL's
+    counts) as an upright ellipsoid (0.35, 0.9, 0.35) at z = 2, jittered
+    per pose by N(0, 0.01), seen by a unit weak-perspective camera. Faces
+    are in the mesh's own ring-by-ring order, or in a seeded random order
+    with ``shuffle``.
+
+    Returns (verts (T, V, 3) float32, cams (T, 3) float32, faces (F, 3))."""
+    verts0, faces = uv_sphere()
+    rng = np.random.RandomState(seed)
+    verts = (verts0 * np.float32([0.35, 0.9, 0.35])
+             + rng.normal(scale=0.01, size=(T, 1, 3))).astype(np.float32)
+    verts[..., 2] += 2.0
+    if shuffle:
+        faces = faces[rng.permutation(len(faces))]
+    cams = np.tile(np.float32([[1.0, 0.0, 0.0]]), (T, 1))
+    return verts, cams, faces
+
+
+def degenerate_faces(seed: int = 0) -> np.ndarray:
+    """(120, 3, 3) float32 random view-space triangles at z in [1, 5] of
+    which 20 cross the near plane, 20 cross the far plane, 5 are points, 5
+    are exactly collinear and 20 are wound backwards."""
+    n_faces = 120
+    rng = np.random.RandomState(seed)
+    centers = rng.uniform(-0.8, 0.8, size=(n_faces, 1, 3))
+    offsets = rng.uniform(-0.35, 0.35, size=(n_faces, 3, 3))
+    fv = (centers + offsets).astype(np.float32)
+    fv[:, :, 2] = rng.uniform(1.0, 5.0, size=(n_faces, 3))
+    fv[:20, :, 2] = np.float32([0.05, 0.3, 0.2])       # crosses near
+    fv[20:40, :, 2] = np.float32([24.0, 30.0, 26.0])   # crosses far
+    fv[40:45, 1:] = fv[40:45, :1]                       # points
+    fv[45:50, 2] = 0.5 * (fv[45:50, 0] + fv[45:50, 1])  # collinear
+    fv[50:70] = fv[50:70, ::-1]                         # back faces
+    return fv
+
+
+def _sliver(rng: np.random.RandomState, v0: np.ndarray, v1: np.ndarray,
+            lo: float, hi: float) -> np.ndarray:
+    """A near-collinear (3, 2) sliver: v0, v1 and a third vertex off their
+    midpoint by 10**U(lo, hi) of their distance."""
+    off = 10.0 ** rng.uniform(lo, hi)
+    normal = np.array([v0[1] - v1[1], v1[0] - v0[0]])
+    return np.stack([v0, v1,
+                     0.5 * (v0 + v1) + off * rng.choice([-1, 1]) * normal])
+
+
+def sliver_scene(image_size: int, seed: int = 0) -> np.ndarray:
+    """(768, 3, 3) float32 view-space triangles full of the
+    rasterizer's hard cases, for checking a culled kernel against the
+    dense version.
+
+    The first block of 256 faces holds ``degenerate_faces(seed)`` and
+    136 near-collinear slivers in front of them (z in [0.5, 1]); two in
+    three lie on a diagonal through pixel centres of an ``image_size``
+    image, 1e-7.5 to 1e-6.5 of their length off it, where the float edge
+    tests accept pixel centres along the line beyond the sliver's box; the
+    others are random, 1e-9 to 1e-3 off. Each of the next two
+    blocks holds 256 such slivers on one diagonal whose ends are pixel
+    centres at the corners of 16 x 16 tiles, so the block's box ends at a
+    tile border and any pixel that its faces win beyond it lies in a tile
+    that the box misses."""
+    S = image_size
+    rng = np.random.RandomState(seed + 1000)
+    centre = (2.0 * np.arange(S) + 1.0 - S) / S
+    fv = np.zeros((768, 3, 3), np.float32)
+    fv[:120] = degenerate_faces(seed)
+    for i in range(120, 256):
+        if i % 3:
+            a, b = rng.randint(0, S, 2)
+            d = rng.randint(1, max(S // 4, 2))
+            c = int(np.clip(b + rng.choice([-1, 1]) * d, 0, S - 1))
+            v0 = np.array([centre[a], centre[b]])
+            v1 = np.array([centre[min(a + d, S - 1)], centre[c]])
+            fv[i, :, :2] = _sliver(rng, v0, v1, -7.5, -6.5)
+        else:
+            v0 = rng.uniform(-1.0, 1.0, 2)
+            v1 = v0 + rng.uniform(-0.5, 0.5, 2)
+            fv[i, :, :2] = _sliver(rng, v0, v1, -9.0, -3.0)
+    tiles = max(S // 16, 1)
+    for k in (1, 2):
+        n = rng.randint(1, max(tiles // 2, 1) + 1)     # length in tiles
+        tx, ty = rng.randint(0, tiles - n + 1, 2)
+        a, b = 16 * tx, 16 * ty
+        e = min(16 * n - 1, S - 1 - max(a, b))
+        v0, v1 = ((a, b), (a + e, b + e)) if rng.rand() < 0.5 else (
+            (a, b + e), (a + e, b))
+        v0 = np.array([centre[v0[0]], centre[v0[1]]])
+        v1 = np.array([centre[v1[0]], centre[v1[1]]])
+        for i in range(256 * k, 256 * (k + 1)):
+            fv[i, :, :2] = _sliver(rng, v0, v1, -7.5, -6.5)
+    fv[120:, :, 2] = rng.uniform(0.5, 1.0, (len(fv) - 120, 3))
+    return fv

@@ -95,8 +95,8 @@ def world():
     tpipe = JAFProPipeline(cfg, flow_engine=SMPLFlowEngine(
         faces=faces, image_size=S), device="cpu")
     load_jax_params(tpipe, params)
-    return {"clip": clip, "jpipe": jpipe, "params": params, "tpipe": tpipe,
-            "jout": {}}
+    return {"clip": clip, "faces": faces, "jpipe": jpipe, "params": params,
+            "tpipe": tpipe, "jout": {}}
 
 
 def jax_reference(world, warp_mode):
@@ -125,6 +125,40 @@ def test_whole_clip_matches_jax(world, flow_mode, frame_batch, warp_mode):
                                    err_msg=k)
     fill = out["tsf"][0, 0, 0]
     assert not torch.all(out["tsf"] == fill)  # the flow branch saw the mesh
+
+
+def test_whole_clip_bf16_matches_jax(world):
+    """The ``Config`` default compute dtype, bfloat16, in both packages from
+    the same bridged weights: the port's clip stays within twice the JAX
+    package's own bfloat16-vs-float32 error of the JAX bfloat16 clip (the
+    two frameworks round to bfloat16 at different places), the output
+    dtypes agree, and the port's clip is as far from its own float32 clip
+    as bfloat16 puts it (a port computing in float32 would not be)."""
+    kw = dict(image_size=S, part_size=PS, num_parts=P, maximum_ref_frames=R,
+              compute_dtype="bfloat16")
+    faces, clip = world["faces"], world["clip"]
+    jpipe = JPipeline(JConfig(**kw), flow_engine=JEngine(
+        faces=faces, image_size=S, backend="xla", band_rows=0,
+        depth_mode="exact"))
+    jout = JGenerator(jpipe)(world["params"],
+                             {k: jnp.asarray(v) for k, v in clip.items()})
+    jout = {k: np.asarray(jout[k]) for k in OUT_KEYS}
+    tpipe = JAFProPipeline(Config(**kw), flow_engine=SMPLFlowEngine(
+        faces=faces, image_size=S), device="cpu")
+    load_jax_params(tpipe, world["params"])
+    out = VideoGenerator(tpipe)(clip)
+    j32 = jax_reference(world, "lut")
+    p32 = VideoGenerator(world["tpipe"])(clip)
+    for k in OUT_KEYS:
+        assert str(out[k].dtype) == f"torch.{jout[k].dtype.name}", k
+    for k in ("final", "mask"):
+        j16 = jout[k].astype(np.float32)
+        own = np.abs(j16 - j32[k]).max()
+        got = out[k].float().numpy()
+        assert np.isfinite(got).all(), k
+        assert 0 < own < 0.05, k
+        assert np.abs(got - j16).max() <= 2 * own, k
+        assert np.abs(got - p32[k].numpy()).max() > 0.3 * own, k
 
 
 def test_output_uint8_and_frames_to_uint8(world):

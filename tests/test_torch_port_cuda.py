@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from jafpro_tpu_torch.geometry import rasterizer as trast
+from jafpro_tpu_torch.geometry.flow import SMPLFlowEngine
+from jafpro_tpu_torch.utils.meshproxy import ellipsoid_clip, sliver_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -31,10 +33,27 @@ def random_faces(n_faces, seed=0):
     return fv
 
 
-@pytest.mark.parametrize("S,n_faces", [(32, 300), (64, 1000), (100, 517)])
-def test_kernel_matches_plain(cuda, S, n_faces):
-    fv = torch.from_numpy(np.stack([random_faces(n_faces, s)
-                                    for s in range(3)])).to(cuda)
+def shuffled_sphere(T=3):
+    """The clip's 13776-face mesh with its faces in a seeded random order."""
+    verts, cams, faces = ellipsoid_clip(T, shuffle=True)
+    return SMPLFlowEngine(faces=faces, image_size=256).project_faces(
+        torch.from_numpy(cams), torch.from_numpy(verts)).numpy()
+
+
+SCENES = {
+    "random": lambda S, n: np.stack([random_faces(n, s) for s in range(3)]),
+    "shuffled_sphere": lambda S, n: shuffled_sphere(),
+    "slivers": lambda S, n: np.stack([sliver_scene(S, seed=s)
+                                      for s in range(2)]),
+}
+
+
+@pytest.mark.parametrize("scene,S,n_faces", [
+    ("random", 32, 300), ("random", 64, 1000), ("random", 100, 517),
+    ("shuffled_sphere", 256, 13776), ("slivers", 256, 768)])
+def test_kernel_matches_plain(cuda, scene, S, n_faces):
+    fv = torch.from_numpy(SCENES[scene](S, n_faces)).to(cuda)
+    assert fv.shape[1] == n_faces
     before = trast.rasterize_fim_wim.launches
     fim, wim = trast.rasterize_fim_wim(fv, image_size=S)
     torch.cuda.synchronize()

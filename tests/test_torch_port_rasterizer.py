@@ -23,7 +23,8 @@ from jafpro_tpu.geometry.rasterizer_pallas import rasterize_fim_wim_pallas
 
 from jafpro_tpu_torch.geometry import rasterizer as trast
 from jafpro_tpu_torch.geometry.flow import SMPLFlowEngine
-from jafpro_tpu_torch.utils.meshproxy import uv_sphere
+from jafpro_tpu_torch.utils.meshproxy import (
+    degenerate_faces, ellipsoid_clip, sliver_scene, uv_sphere)
 
 torch.set_num_threads(1)
 WIM_ATOL = 1e-4
@@ -139,16 +140,80 @@ def test_plain_near_far_and_degenerate():
     """Faces crossing the near and far planes, degenerate (zero-area)
     faces and back faces."""
     S = 32
-    fv = random_faces(120, seed=11)
-    fv[:20, :, 2] = np.float32([0.05, 0.3, 0.2])      # crosses near
-    fv[20:40, :, 2] = np.float32([24.0, 30.0, 26.0])  # crosses far
-    fv[40:45, 1:] = fv[40:45, :1]                      # a point
-    fv[45:50, 2] = 0.5 * (fv[45:50, 0] + fv[45:50, 1])  # collinear
-    fv[50:70] = fv[50:70, ::-1]                        # flipped winding
-    fv = fv[None]
+    fv = degenerate_faces(seed=11)[None]
     fim, wim = plain(fv, S)
     check(fim, wim, *rasterize_fim_wim_pallas(
         jnp.asarray(fv), image_size=S, block=32, rows=8, interpret=True))
+
+
+def sphere_faces(T=2, shuffle=False, S=64):
+    """The clip's full-size mesh (``ellipsoid_clip``), projected."""
+    verts, cams, faces = ellipsoid_clip(T, shuffle=shuffle)
+    return SMPLFlowEngine(faces=faces, image_size=S).project_faces(
+        torch.from_numpy(cams), torch.from_numpy(verts)).numpy()
+
+
+@pytest.mark.parametrize("scene,S", [
+    ("random", 32), ("random", 64), ("z_fighting", 32), ("degenerate", 32),
+    ("degenerate", 100), ("slivers", 64), ("slivers", 256)])
+def test_face_tile_keep_keeps_every_winner(scene, S):
+    """The kernel's culls (``face_tile_keep``) are conservative: every
+    pixel whose plain-version winner is face f lies in a tile that keeps f.
+    The sliver scene holds near-collinear faces whose float edge tests
+    accept pixel centres beyond their box along their line, also in blocks
+    whose box ends at a tile border."""
+    fv = {
+        "random": lambda: np.stack([random_faces(300, s) for s in (1, 2)]),
+        "z_fighting": lambda: z_fighting_faces()[None],
+        "degenerate": lambda: degenerate_faces(seed=11)[None],
+        "slivers": lambda: np.stack([sliver_scene(S, seed=s)
+                                     for s in (0, 1)]),
+    }[scene]()
+    prep = trast.prepare_faces(torch.from_numpy(fv), S)
+    keep = trast.face_tile_keep(prep, S)
+    fim, _ = trast.rasterize_prepared_reference(prep, S, 0.1, 25.0,
+                                                flip_y=False)
+    b, row, col = torch.nonzero(fim >= 0, as_tuple=True)
+    assert len(b) > 100
+    tile = trast.TILE
+    kept = keep[b, row // tile, col // tile, fim[b, row, col].long()]
+    assert kept.all(), f"{int((~kept).sum())} winners culled"
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_face_tile_keep_culls_the_sphere(shuffle):
+    """On the clip's 13776-face mesh at 64x64 the cull keeps a small part of
+    the faces per body tile, in either face order."""
+    S = 64
+    prep = trast.prepare_faces(torch.from_numpy(sphere_faces(
+        shuffle=shuffle)), S)
+    n = trast.face_tile_keep(prep, S).sum(-1)    # (B, Ty, Tx)
+    F = prep.faces.shape[2]
+    assert (n > 0).sum() >= 8                    # the body covers tiles
+    assert n[n > 0].float().mean() < 0.15 * F
+    assert n.max() < 0.25 * F
+
+
+def test_face_cull_box_widening():
+    """A face's cull box is its box widened by one pixel plus its reach:
+    a little more than a pixel for a fat face, more for a sliver, and
+    unbounded for a face of zero area."""
+    S = 64
+    fv = torch.tensor([
+        [[-0.5, -0.5], [0.5, -0.5], [0.0, 0.5]],          # fat
+        [[-0.5, -0.5], [0.5, 0.5], [0.0, 1e-5]],          # sliver
+        [[-0.5, -0.5], [0.5, 0.5], [0.0, 0.0]],           # collinear
+        [[0.1, 0.2], [0.1, 0.2], [0.1, 0.2]],             # point
+    ])
+    x, y = fv[..., 0], fv[..., 1]
+    xlo, xhi, ylo, yhi = trast.face_cull_box(x, y, S)
+    grow = torch.stack([x.amin(-1) - xlo, xhi - x.amax(-1),
+                        y.amin(-1) - ylo, yhi - y.amax(-1)])
+    px = 2.0 / S
+    assert ((grow[:, :2] - grow[0, :2]).abs() < 1e-6).all()  # every side
+    assert px < grow[0, 0] < 1.01 * px
+    assert 1.01 * px < grow[0, 1] < 4.0
+    assert torch.isinf(grow[:, 2:]).all()
 
 
 def test_prepare_faces_layout():
