@@ -31,6 +31,23 @@ Phases, each of which raises on failure (nothing is caught):
    from one more clip with the generator's stage clock on, the device
    time of each stage. Then the same clip in bfloat16 (the ``Config``
    default): checked outputs, frames/s and the distance from float32.
+6. Serve and score: four seeded full-width clips packed by the writer
+   behind ``pack --kind clips`` (``shardio.write_clip_pack``) into a
+   temporary directory (removed at the end), read back with
+   ``ClipPackReader`` and served as ``cli infer --packed-clips`` serves
+   them (``cli.serve``, ``cli.serving_generator``: uint8 on the card, two
+   overlapping batches of n = 2) with a writer that keeps the fetched
+   frames (``cli.fetch_clips``) in memory, since the card machine has no
+   ``cv2``. Served in float32 (TF32 off) and in the CLI's default
+   bfloat16, each first and warm. The rasterizer must launch exactly once
+   per batch; each served clip must equal the same generator on that
+   clip alone within 1 uint8 step; a float32 batch must equal per-clip
+   generation within 1e-4. Reports clips/s, the load, compute and write
+   ms per batch and peak memory; then scores two clips' final frames
+   against their coarse frames with ``evaluate_video`` and both deep
+   metrics (seeded VGG19 and FlowNetSD) on the card, under PyTorch's
+   default TF32 settings as ``cli evaluate`` runs, held to the same call
+   on the CPU within 1e-3 relative.
 
 Prints the kernels' JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -40,9 +57,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,6 +73,9 @@ PEAK_BYTES_PER_S = 3.35e12
 OPS_PER_PAIR = 40  # fp32 operations per (pixel, face) test in the kernel
 KERNEL_SOURCE = "jafpro_tpu_torch/csrc/rasterizer.cu"
 KERNEL_REPLACES = "jafpro_tpu/geometry/rasterizer_pallas.py:119"
+# PyTorch's own TF32 settings, those the CLI runs under
+TF32_DEFAULTS = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
 
 
 def log(msg: str) -> None:
@@ -368,6 +390,163 @@ def run_clip(gen, clip: dict, T: int, S: int, what: str, card: str) -> tuple:
     return out, clip_s
 
 
+def pack_clips(seed: int, n: int, T: int, NR: int, S: int, p: int, P: int,
+               pack_dir: str) -> None:
+    """``n`` seeded full-width clips packed by the writer behind ``pack
+    --kind clips`` (``shardio.write_clip_pack``)."""
+    from jafpro_tpu_torch.data.shardio import write_clip_pack
+
+    write_clip_pack(
+        (dict(make_clip(seed + 10 + i, T, NR, S, p, P)[0],
+              vid_name=f"clip_{i}", chosen_names=[]) for i in range(n)),
+        pack_dir, mode="test", num_refs=NR)
+
+
+def rel_diff(a: dict, b: dict) -> float:
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b)
+
+
+def u8_diff(a: dict, b: dict) -> int:
+    """Largest difference of two clips' uint8 streams (tensors or arrays)."""
+    def host(x):
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        return x.astype(np.int16)
+
+    return max(int(np.abs(host(a[k]) - host(b[k])).max())
+               for k in ("final", "coarse", "mask", "tsf"))
+
+
+def serve_pack(cfg, engine, seed: int, pack_dir: str, clips_per_batch: int,
+               what: str, card: str) -> tuple:
+    """The loop ``cli infer --packed-clips`` runs (``cli.serve`` over
+    ``cli.open_clip_source``, ``cli.serving_generator``: uint8 on the
+    card, several overlapping batches), with a writer that keeps the
+    fetched frames (``cli.fetch_clips``) in memory instead of encoding
+    jpgs. Served twice, first and warm; the rasterizer must launch once
+    per batch in each."""
+    from jafpro_tpu_torch import cli
+    from jafpro_tpu_torch.geometry import rasterizer as R
+    from jafpro_tpu_torch.pipeline import JAFProPipeline
+
+    vids, load = cli.open_clip_source(cfg, cfg.maximum_ref_frames, pack_dir)
+    pipe = JAFProPipeline(cfg, flow_engine=engine, device="cuda",
+                          generator=torch.Generator().manual_seed(seed))
+    gen = cli.serving_generator(pipe, cfg)
+    groups = cli.group_items(vids, clips_per_batch)
+    written = {}
+
+    def write(group, out):
+        written.update(cli.fetch_clips(group, out, cli.STREAMS))
+
+    for run in ("first", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        R.rasterize_fim_wim.launches = 0
+        st = cli.serve(groups, load, cli.generate_group(gen), write)
+        launches = R.rasterize_fim_wim.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[serve] {what} {run} loop: {len(vids)} clips in {len(groups)} "
+            f"batches of {clips_per_batch}: "
+            f"{len(vids) / st['loop_seconds']:.3f} clips/s "
+            f"({st['loop_seconds']:.4f} s); per batch load "
+            f"{st['load_ms']:.2f} ms, compute {st['compute_ms']:.2f} ms, "
+            f"write {st['write_ms']:.2f} ms; rasterize_fim_wim launches "
+            f"{launches}; peak memory {peak:.2f} GiB [{card}]")
+        if launches != len(groups):
+            raise AssertionError("a batch did not rasterize in one launch")
+    for vid in vids:
+        for k, c in (("final", 3), ("coarse", 3), ("mask", 1), ("tsf", 3)):
+            x = written[vid][k]
+            if x.dtype != np.uint8 or x.shape != (
+                    cfg.num_frames, cfg.image_size, cfg.image_size, c):
+                raise AssertionError(f"served {vid}: {k} {x.dtype} {x.shape}")
+    return vids, load, gen, written
+
+
+def phase_serve(seed: int, engine, card: str) -> None:
+    """Phase 6: pack four clips, serve them in two batches through the
+    CLI's loop (float32, then the CLI's default bfloat16), check the
+    batches against per-clip generation, and score two of them."""
+    from jafpro_tpu_torch import cli
+    from jafpro_tpu_torch.config import Config
+    from jafpro_tpu_torch.evaluate import evaluate_video
+    from jafpro_tpu_torch.infer import VideoGenerator, stack_clips
+
+    cfg = Config(compute_dtype="float32")
+    T, NR, S, p, P = cfg.num_frames, cfg.maximum_ref_frames, \
+        cfg.image_size, cfg.part_size, cfg.num_parts
+    n_clips, per_batch = 4, 2
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as pack_dir:
+        pack_clips(seed, n_clips, T, NR, S, p, P, pack_dir)
+        mib = os.path.getsize(os.path.join(
+            pack_dir, "test-clips-00000.shard")) / 2 ** 20
+        log(f"[serve] packed {n_clips} clips ({mib:.1f} MiB) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        vids, load, gen, served = serve_pack(
+            cfg, engine, seed, pack_dir, per_batch, "float32", card)
+        clips = load(vids)
+        # each served clip against the same generator on that clip alone
+        d = max(u8_diff(served[vid], gen(clip))
+                for vid, clip in zip(vids, clips))
+        log(f"[serve] served (uint8) vs per-clip generation: max {d} LSB")
+        if not d <= 1:
+            raise AssertionError("a served batch disagrees with per-clip "
+                                 "generation")
+        # the batch in float32 against per-clip generation in float32
+        fgen = VideoGenerator(gen.pipe, frame_batch=T, flow_mode="batch")
+        batch = fgen.generate_batch(stack_clips(clips[:per_batch]))
+        d = 0.0
+        for ci, clip in enumerate(clips[:per_batch]):
+            single = fgen(clip)
+            check_outputs(single, T, S, f"clip {vids[ci]}")
+            d = max(d, max_diff({k: v[ci] for k, v in batch.items()},
+                                single))
+        log(f"[serve] float32 batch vs per-clip generation: max abs {d:.3e}")
+        if not d <= 1e-4:
+            raise AssertionError("the batch disagrees with per-clip "
+                                 "generation")
+        del gen, fgen, batch
+        # the dtype `cli infer` serves in (Config's default)
+        served16 = serve_pack(Config(), engine, seed, pack_dir, per_batch,
+                              "bfloat16", card)[3]
+        log(f"[serve] bfloat16 vs float32 served: max "
+            f"{max(u8_diff(served16[v], served[v]) for v in vids)} LSB")
+        del served16
+
+    # score with the TF32 settings `cli evaluate` runs under (PyTorch's
+    # defaults); evaluate_video turns TF32 off itself
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = TF32_DEFAULTS
+    nets = {dev: cli._metric_hooks(dev) for dev in ("cuda", "cpu")}
+    for vid in vids[:per_batch]:
+        pred, gt = served[vid]["final"], served[vid]["coarse"]
+        card_m = evaluate_video(pred, gt, device="cuda", **nets["cuda"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        evaluate_video(pred, gt, device="cuda", **nets["cuda"])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cpu_m = evaluate_video(pred, gt, device="cpu", **nets["cpu"])
+        cpu_s = time.perf_counter() - t1
+        r = rel_diff(card_m, cpu_m)
+        log(f"[score] {vid} final vs coarse: "
+            + ", ".join(f"{k} {v:.6g}" for k, v in card_m.items())
+            + f"; evaluate {card_s:.4f} s per clip on the card ({cpu_s:.2f} "
+            f"s on the CPU); card vs CPU max rel {r:.3e}; TF32 flags "
+            f"cudnn={torch.backends.cudnn.allow_tf32} "
+            f"matmul={torch.backends.cuda.matmul.allow_tf32} [{card}]")
+        if set(card_m) != {"ssim", "l1", "ms_ssim", "psnr", "vgg",
+                           "flow_l1"} or not all(
+                np.isfinite(v) for v in card_m.values()):
+            raise AssertionError(f"bad metrics for {vid}: {card_m}")
+        if not r <= 1e-3:
+            raise AssertionError("the card's metrics disagree with the CPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"[serve] phase 6 took {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -429,6 +608,10 @@ def main(argv=None) -> int:
                                        flow_mode="batch"), clip, T, S,
                         "bfloat16", card)
     log(f"[slice] bfloat16 vs float32: max abs {max_diff(out, out16):.3e}")
+    del pipe16
+
+    # ---- phase 6: serve and score ----
+    phase_serve(args.seed, engine, card)
 
     kernels = [{
         "name": "rasterize_fim_wim", "route": "cuda",

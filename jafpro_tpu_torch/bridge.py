@@ -1,11 +1,20 @@
-"""JAX param tree -> the port's ``state_dict``s.
+"""JAX (flax) variables -> the port's ``state_dict``s.
 
-A tree as ``jafpro_tpu``'s ``JAFProPipeline.init_params`` returns it
-(nested dicts of arrays, one subtree per module) maps onto the port's
-modules by path, because the port names its children as flax names
-them. Kernels change layout: a conv's HWIO (k, k, cin, cout) becomes OIHW,
-a part conv's (P, k, k, cin, cout) becomes the grouped (P*cout, cin, k, k),
-part-major. Takes plain numpy arrays, so it imports no JAX.
+A flax tree (nested dicts of arrays, one subtree per submodule) maps onto
+a port module by path, because the port names its children as flax names
+them. Each leaf is converted by the type of the port submodule it lands
+in, never by its rank:
+- ``nn.Conv`` -> ``nn.Conv2d``: kernel (k, k, cin, cout) -> weight OIHW;
+- ``PartConv`` (P, k, k, cin, cout) -> the grouped (P*cout, cin, k, k),
+  part-major;
+- ``nn.ConvTranspose`` (``transpose_kernel=False``) -> ``nn.ConvTranspose2d``:
+  flax correlates the stride-dilated input with its (k, k, cin, cout)
+  kernel as it is, torch with its (cin, cout, k, k) weight flipped in
+  space, so the weight is the kernel flipped and moved to (cin, cout);
+- ``nn.BatchNorm`` -> ``nn.BatchNorm2d``: params scale / bias -> weight /
+  bias, ``batch_stats`` mean / var -> running_mean / running_var.
+Other leaves (norm affines) keep their names. Takes plain numpy arrays,
+so it imports no JAX.
 """
 
 from __future__ import annotations
@@ -14,23 +23,43 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
+from jafpro_tpu_torch.models.parts import PartConv
+
+# the generation modules of ``JAFProPipeline``, under the param tree's names
 MODULES = ("accu", "inpaint", "bg", "refine", "pro")
 
+_BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var"}
 
-def _convert_kernel(a: np.ndarray) -> np.ndarray:
-    if a.ndim == 5:  # PartConv (P, kh, kw, cin, cout)
+
+def _convert(mod: nn.Module, leaf: str, a: np.ndarray):
+    """(state_dict leaf name, array) for flax leaf ``leaf`` of ``mod``."""
+    if isinstance(mod, nn.BatchNorm2d):
+        return _BN_NAMES[leaf], a
+    if leaf != "kernel":
+        return leaf, a
+    if isinstance(mod, nn.ConvTranspose2d):
+        return "weight", np.flip(a, (0, 1)).transpose(2, 3, 0, 1)
+    if isinstance(mod, PartConv):
         P, kh, kw, cin, cout = a.shape
-        return a.transpose(0, 4, 3, 1, 2).reshape(P * cout, cin, kh, kw)
-    if a.ndim == 4:  # Conv (kh, kw, cin, cout)
-        return a.transpose(3, 2, 0, 1)
-    raise ValueError(f"unexpected kernel rank {a.ndim}")
+        return "weight", a.transpose(0, 4, 3, 1, 2).reshape(
+            P * cout, cin, kh, kw)
+    if isinstance(mod, nn.Conv2d):
+        return "weight", a.transpose(3, 2, 0, 1)
+    raise TypeError(f"no kernel rule for {type(mod).__name__}")
 
 
-def state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flatten one module's flax param tree into a ``state_dict``."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+def state_dict_from_flax(variables: Dict[str, Any],
+                         module: nn.Module) -> Dict[str, torch.Tensor]:
+    """Flatten one module's flax variables (``{"params": ...,
+    "batch_stats": ...}`` or a bare params tree) into ``module``'s
+    ``state_dict``."""
+    if set(variables) <= {"params", "batch_stats"}:
+        trees = [variables.get("params", {}), variables.get("batch_stats", {})]
+    else:
+        trees = [variables]
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -38,19 +67,30 @@ def state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if isinstance(v, dict):
                 walk(v, path + [k])
                 continue
-            a = np.asarray(v, dtype=np.float32)
-            if k == "kernel":
-                a, k = _convert_kernel(a), "weight"
-            out[".".join(path + [k])] = torch.from_numpy(
+            mod = module.get_submodule(".".join(path))
+            name, a = _convert(mod, k, np.asarray(v, dtype=np.float32))
+            out[".".join(path + [name])] = torch.from_numpy(
                 np.array(a, dtype=np.float32, order="C"))
 
-    walk(tree, [])
+    for tree in trees:
+        walk(tree, [])
+    # flax keeps no batch counter; eval-mode BatchNorm does not read it
+    for name, mod in module.named_modules():
+        if isinstance(mod, nn.BatchNorm2d) and mod.track_running_stats:
+            out[f"{name}.num_batches_tracked" if name else
+                "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return out
+
+
+def load_flax(module: nn.Module, variables: Dict[str, Any]) -> None:
+    """Load flax variables into ``module`` (strict: every parameter and
+    buffer must be present with its shape)."""
+    module.load_state_dict(state_dict_from_flax(variables, module),
+                           strict=True)
 
 
 def load_jax_params(pipe: torch.nn.Module, params: Dict[str, Any]) -> None:
     """Load the five generation modules of ``pipe`` from a JAX param tree
-    (strict: every parameter must be present with its shape)."""
+    (``JAFProPipeline.init_params`` layout)."""
     for name in MODULES:
-        getattr(pipe, name).load_state_dict(
-            state_dict_from_flax(params[name]), strict=True)
+        load_flax(getattr(pipe, name), params[name])

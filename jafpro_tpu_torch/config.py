@@ -1,7 +1,7 @@
-"""Configuration of the generation path.
+"""Configuration of the generation and serving paths.
 
-The main-path fields of ``jafpro_tpu/config.py::Config`` under the same
-names and defaults; training, data-loading and TPU-only knobs are left out.
+The main-path and path fields of ``jafpro_tpu/config.py::Config`` under
+the same names and defaults; training and TPU-only knobs are left out.
 """
 
 from __future__ import annotations
@@ -26,7 +26,27 @@ class Config:
     near: float = 0.1
     far: float = 25.0
 
+    project_dir: str = "."
+    model_save_dir: str = "./checkpoints"
+    test_save_dir: str = "./test_results"
+    data_root: str = ""
+    smpl_root: str = ""
+    mask_root: str = ""
+
     compute_dtype: str = "bfloat16"   # conv activations dtype
+
+
+def get_general_options() -> Config:
+    """``Config()`` with the data roots taken from ``JAFPRO_DATA_ROOT``,
+    ``JAFPRO_SMPL_ROOT`` and ``JAFPRO_MASK_ROOT`` where they are set."""
+    cfg = Config()
+    for attr, var in (("data_root", "JAFPRO_DATA_ROOT"),
+                      ("smpl_root", "JAFPRO_SMPL_ROOT"),
+                      ("mask_root", "JAFPRO_MASK_ROOT")):
+        v = os.environ.get(var)
+        if v:
+            setattr(cfg, attr, v)
+    return cfg
 
 
 def default_smpl_faces_path() -> Optional[str]:

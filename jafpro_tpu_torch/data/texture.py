@@ -9,6 +9,9 @@ serves every IUV map of the batch without being copied.
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from jafpro_tpu_torch.ops.sampling import _interp_tensor
@@ -103,3 +106,20 @@ def texture_warp_lut(lut: torch.Tensor, iuv255: torch.Tensor) -> torch.Tensor:
     flat = lut.reshape(lut.shape[0], P * G * G, C)
     out = flat[_batch_index(lut, B), idx].reshape(*pid.shape, C)
     return torch.where((pid > 0)[..., None], out, torch.zeros_like(out))
+
+
+def write_gif(path: str, frames: np.ndarray, fps: int = 10) -> str:
+    """GIF export with PIL (imported here). frames: (T, H, W[, 3]) floats
+    in [0, 1] or uint8. Writes ``<path without extension>.gif``."""
+    from PIL import Image
+
+    frames = np.asarray(frames)
+    if frames.ndim == 3:
+        frames = np.repeat(frames[..., None], 3, -1)
+    if frames.dtype != np.uint8:
+        frames = np.clip(frames * 255, 0, 255).astype(np.uint8)
+    imgs = [Image.fromarray(f) for f in frames]
+    path = os.path.splitext(path)[0] + ".gif"
+    imgs[0].save(path, save_all=True, append_images=imgs[1:],
+                 duration=int(1000 / fps), loop=0)
+    return path

@@ -10,8 +10,10 @@ image; the propagation net (per-sample norm) blends the two.
 
 Frames are independent given the clip's textures, so the result does not
 depend on ``frame_batch``; ``flow_mode="batch"`` rasterizes and warps every
-frame in one pass up front (one kernel launch per clip) instead of per
-frame group, with the same output.
+frame in one pass up front (one kernel launch per call) instead of per
+frame group, with the same output. ``generate_batch`` runs several clips
+through every stage together (the JAX package's ``vmap`` over clips); a
+single clip is a batch of one.
 """
 
 from __future__ import annotations
@@ -19,26 +21,17 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
+from jafpro_tpu_torch.data.shardio import U8_SYMMETRIC_FIELDS, U8_UNIT_FIELDS
 from jafpro_tpu_torch.data.texture import (
     build_texture_warp_lut, parts_to_atlas, texture_warp_atlas,
     texture_warp_lut)
 from jafpro_tpu_torch.geometry.flow import cal_bc_transform
-from jafpro_tpu_torch.pipeline import JAFProPipeline, to_nchw, to_nhwc
-
-# uint8 wire encoding by field semantics (the JAX package's
-# ``data/shardio.py`` constants): symmetric (-1, 1) images, (0, 1) masks
-# and raw 0..255 IUV codes
-U8_SYMMETRIC_FIELDS = frozenset({
-    "src_parts", "tgt_parts", "tgt_img", "src_img_first", "src_imgs",
-    "prev_img"})
-U8_UNIT_FIELDS = frozenset({
-    "src_mask_parts", "tgt_mask_parts", "smpl_mask"})
-U8_RAW_FIELDS = frozenset({"tgt_iuv255"})
+from jafpro_tpu_torch.pipeline import JAFProPipeline, to_nchw
 
 
 def normalize_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -143,12 +136,23 @@ class VideoGenerator:
           cams (T, 3), verts (T, V, 3).
         Other fields are ignored. Returns (T, S, S, C) tensors on the
         pipeline's device: final / coarse / mask / tsf."""
-        dev = self.pipe.device
-        clip = {k: torch.as_tensor(v, device=dev)
+        clip = {k: torch.as_tensor(v)[None]
                 for k, v in clip.items() if k in self._CLIP_FIELDS}
+        return {k: v[0] for k, v in self.generate_batch(clip).items()}
+
+    def generate_batch(self, clips) -> Dict[str, torch.Tensor]:
+        """Many clips in one pass: every field of ``clips`` carries a
+        leading n_clips axis on the per-clip layout of ``__call__``
+        (``stack_clips`` builds it). The texture nets, both CRNs and the
+        propagation net see all clips' samples as one batch; with
+        ``flow_mode="batch"`` one rasterizer launch covers all n*T poses.
+        Returns (n_clips, T, S, S, C) tensors."""
+        dev = self.pipe.device
+        clips = {k: torch.as_tensor(v, device=dev)
+                 for k, v in clips.items() if k in self._CLIP_FIELDS}
         clock = _StageClock(dev) if self.time_stages else _no_clock
         with torch.no_grad():
-            result = self._generate(normalize_batch(clip), clock)
+            result = self._generate(normalize_batch(clips), clock)
         if self.time_stages:
             self.stage_ms = clock.totals_ms()
         return result
@@ -157,27 +161,35 @@ class VideoGenerator:
         pipe = self.pipe
         engine = pipe.flow_engine
         S = pipe.cfg.image_size
+        n, T = clip["tgt_iuv255"].shape[:2]
         with stage("accumulate+inpaint"):
-            inpainted, _ = pipe.prepare_textures(
-                clip["src_parts"], clip["ref_mask"], clip["src_mask_parts"])
+            inpainted, _ = pipe.prepare_textures(          # (n, P, p, p, 3)
+                clip["src_parts"][:, 0], clip["ref_mask"][:, 0],
+                clip["src_mask_parts"][:, 0])
         with stage("background CRN"):
-            bg_out = pipe.bg(to_nchw(clip["bg_incomplete"]), S)  # (1,3,S,S)
+            bg_out = pipe.bg(to_nchw(clip["bg_incomplete"][:, 0]), S)
 
-        chosen = clip["chosen_frames"].long()         # (R,)
-        src_imgs = to_nchw(clip["src_imgs"])          # (R, 3, S, S)
-        cams, verts = clip["cams"], clip["verts"]
-        T = clip["tgt_iuv255"].shape[0]
+        chosen = clip["chosen_frames"].long()         # (n, R)
+        R = chosen.shape[1]
+        src_imgs = to_nchw(clip["src_imgs"].flatten(0, 1))  # (n*R, 3, S, S)
+        cams, verts = clip["cams"], clip["verts"]     # (n, T, 3), (n, T, V, 3)
+        clip_ids = torch.arange(n, device=chosen.device)[:, None]
 
-        # the R source poses need projected face vertices only
+        # the n*R source poses need projected face vertices only
         with stage("flow branch"):
-            pro_index = torch.clamp(chosen, 0, cams.shape[0] - 1)
+            pro_index = torch.clamp(chosen, 0, T - 1)
             src_f2pts_all = engine.project_faces(
-                cams[pro_index], verts[pro_index])[..., 0:2]
+                cams[clip_ids, pro_index].flatten(0, 1),
+                verts[clip_ids, pro_index].flatten(0, 1))[..., 0:2]
             src_f2pts_all = src_f2pts_all * src_f2pts_all.new_tensor(
-                [1.0, -1.0])
+                [1.0, -1.0])                          # (n*R, F, 3, 2)
 
         def nearest_ref(i: torch.Tensor) -> torch.Tensor:
-            return torch.argmin(torch.abs(i[:, None] - chosen[None, :]), dim=1)
+            """Frame ids (f,) -> (n*f,) index of each clip's nearest
+            reference into the n*R flattened references, clip-major."""
+            r = torch.argmin(torch.abs(i[None, :, None] - chosen[:, None, :]),
+                             dim=2)
+            return (r + R * clip_ids).flatten()
 
         def bc_warp(src_pro, fim, wim):
             flow = cal_bc_transform(src_f2pts_all[src_pro], fim, wim)
@@ -193,40 +205,54 @@ class VideoGenerator:
         while T % fb:  # largest divisor of T not above frame_batch
             fb -= 1
 
+        def frames(x, t0):
+            """Frames t0..t0+fb of every clip, clip-major: (n*fb, ...)."""
+            return x[:, t0:t0 + fb].flatten(0, 1)
+
         frame_ids = torch.arange(T, device=chosen.device)
         if self.flow_mode == "batch":
             with stage("flow branch"):
-                _, fim_all, wim_all = engine.render_fim_wim(cams, verts)
+                _, fim_all, wim_all = engine.render_fim_wim(
+                    cams.flatten(0, 1), verts.flatten(0, 1))
                 tsf_all = bc_warp(nearest_ref(frame_ids), fim_all, wim_all)
+                tsf_all = tsf_all.unflatten(0, (n, T))
 
         outs = {"final": [], "coarse": [], "mask": [], "tsf": []}
         for t0 in range(0, T, fb):
             i = frame_ids[t0:t0 + fb]
-            iuv255 = clip["tgt_iuv255"][t0:t0 + fb]
+            # a clip's frames stacked along rows share its warp table
+            iuv255 = clip["tgt_iuv255"][:, t0:t0 + fb].flatten(1, 2)
             with stage("texture warp"):
                 if self.warp_mode == "lut":
                     warped = texture_warp_lut(warp_src, iuv255)
                 else:
                     warped = texture_warp_atlas(warp_src, iuv255)
+                warped = warped.unflatten(1, (fb, S)).flatten(0, 1)
             with stage("refine CRN+fuse"):
                 refined, fg_mask = pipe.refine(to_nchw(warped), S)
-                fusion = refined * fg_mask + bg_out * (1.0 - fg_mask)
+                fg = fg_mask.unflatten(0, (n, fb))
+                fusion = (refined.unflatten(0, (n, fb)) * fg
+                          + bg_out[:, None] * (1.0 - fg)).flatten(0, 1)
             if self.flow_mode == "batch":
-                tsf = tsf_all[t0:t0 + fb]
+                tsf = frames(tsf_all, t0)
             else:
                 with stage("flow branch"):
-                    _, fim, wim = engine.render_fim_wim(cams[i], verts[i])
+                    _, fim, wim = engine.render_fim_wim(
+                        frames(cams, t0), frames(verts, t0))
                     tsf = bc_warp(nearest_ref(i), fim, wim)
             with stage("propagation"):
                 out = pipe.pro(fusion, tsf,
-                               to_nchw(clip["tgt_iuv"][t0:t0 + fb]),
-                               to_nchw(clip["smpl_mask"][t0:t0 + fb]),
+                               to_nchw(frames(clip["tgt_iuv"], t0)),
+                               to_nchw(frames(clip["smpl_mask"], t0)),
                                per_sample_norm=True)
             outs["final"].append(out["pred_target"])
             outs["coarse"].append(fusion)
             outs["mask"].append(out["weight"])
             outs["tsf"].append(tsf)
-        result = {k: to_nhwc(torch.cat(v)) for k, v in outs.items()}
+        # (n*fb, C, S, S) per group -> (n, T, S, S, C)
+        result = {k: torch.cat([x.unflatten(0, (n, fb)) for x in v],
+                               dim=1).permute(0, 1, 3, 4, 2)
+                  for k, v in outs.items()}
         if self.output_uint8:
             result = {
                 "final": _encode_u8(result["final"]),
@@ -236,6 +262,24 @@ class VideoGenerator:
                     torch.uint8),
             }
         return result
+
+
+def stack_clips(clips: Sequence[dict]) -> Dict[str, np.ndarray]:
+    """Per-clip dicts (``load_clip`` / ``ClipPackReader.load`` output) ->
+    one dict of the generator's fields with a leading n_clips axis, the
+    input of ``VideoGenerator.generate_batch``. The clips must share
+    their shapes."""
+    out = {}
+    for k in VideoGenerator._CLIP_FIELDS:
+        if k not in clips[0]:
+            continue
+        vals = [np.asarray(c[k]) for c in clips]
+        if any(v.shape != vals[0].shape for v in vals):
+            raise ValueError(
+                f"clips differ in {k}: {[v.shape for v in vals]}; only "
+                "clips of one shape can share a batch")
+        out[k] = np.stack(vals)
+    return out
 
 
 def frames_to_uint8(frames) -> np.ndarray:

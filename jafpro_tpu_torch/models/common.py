@@ -138,15 +138,18 @@ def _truncated_normal_(t: torch.Tensor, std: float,
 
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise ``module``'s parameters with flax's default initialisers
-    (lecun truncated-normal kernels, zero biases, uniform [0, 1) LayerNorm
-    gamma), drawing from ``generator`` (a CPU generator) in module order."""
+    (lecun truncated-normal kernels of convs and transposed convs, zero
+    biases, uniform [0, 1) LayerNorm gamma), drawing from ``generator``
+    (a CPU generator) in module order."""
     # stddev of a unit-variance normal truncated to +-2 (flax's constant)
     trunc = 0.87962566103423978
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.weight.shape[1] * m.weight.shape[2] * (
-                    m.weight.shape[3])
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                # OIHW / (cin, cout, kh, kw): flax counts cin * kh * kw
+                cin = m.weight.shape[
+                    0 if isinstance(m, nn.ConvTranspose2d) else 1]
+                fan_in = cin * m.weight.shape[2] * m.weight.shape[3]
                 _truncated_normal_(m.weight, math.sqrt(1.0 / fan_in) / trunc,
                                    generator)
                 if m.bias is not None:

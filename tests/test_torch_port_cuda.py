@@ -62,3 +62,43 @@ def test_kernel_matches_plain(cuda, scene, S, n_faces):
     assert torch.equal(fim, rfim)
     assert (wim - rwim).abs().max().item() <= 1e-5
     assert (fim >= 0).sum().item() > 100
+
+
+def test_generate_batch_one_launch_on_card(cuda):
+    """Two clips as one ``generate_batch`` pass rasterize in one launch and
+    equal the clips generated one by one (float32, TF32 off)."""
+    from jafpro_tpu_torch.config import Config
+    from jafpro_tpu_torch.infer import VideoGenerator, stack_clips
+    from jafpro_tpu_torch.pipeline import JAFProPipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, p, R, T = 64, 32, 2, 4
+    clips = []
+    for seed in (0, 1):
+        verts, cams, faces = ellipsoid_clip(T, seed)
+        rng = np.random.RandomState(seed)
+        iuv = rng.randint(0, 25, (T, S, S, 3)).astype(np.uint8)
+        clips.append({
+            "src_parts": rng.uniform(-1, 1, (1, R, 24, p, p, 3)),
+            "src_mask_parts": (rng.rand(1, R, 24, p, p) > 0.5) * 1.0,
+            "ref_mask": np.ones((1, R)),
+            "bg_incomplete": rng.uniform(-1, 1, (1, S, S, 3)),
+            "src_imgs": rng.uniform(-1, 1, (R, S, S, 3)),
+            "chosen_frames": np.array([seed, T - 1], np.int32),
+            "tgt_iuv255": iuv, "smpl_mask": np.ones((T, S, S, 1)),
+            "cams": cams, "verts": verts})
+    cfg = Config(image_size=S, part_size=p, maximum_ref_frames=R,
+                 compute_dtype="float32")
+    pipe = JAFProPipeline(cfg, flow_engine=SMPLFlowEngine(
+        faces=faces, image_size=S), device=cuda)
+    gen = VideoGenerator(pipe, frame_batch=T, flow_mode="batch")
+    singles = [gen(c) for c in clips]
+    before = trast.rasterize_fim_wim.launches
+    batch = gen.generate_batch(stack_clips(clips))
+    torch.cuda.synchronize()
+    assert trast.rasterize_fim_wim.launches == before + 1
+    for k in ("final", "coarse", "mask", "tsf"):
+        for i in range(2):
+            d = (batch[k][i] - singles[i][k]).abs().max().item()
+            assert d <= 1e-4, (k, i, d)

@@ -1,6 +1,8 @@
 """The port runs where JAX is not installed: no module of
 ``jafpro_tpu_torch``, nor ``chip_smoke.py``, imports ``jax``, ``flax`` or
-``jafpro_tpu``; and its entry points never fall back to the CPU."""
+``jafpro_tpu``; of the files added beside the JAX package only
+``tools/export_jax_params.py`` does, and nothing in the port imports it;
+and its entry points never fall back to the CPU."""
 
 import ast
 import os
@@ -55,6 +57,20 @@ def test_sources_import_no_jax():
     assert len(files) > 15
     for path in files:
         bad = [n for n in imported_names(path) if FORBIDDEN.match(n)]
+        assert not bad, (path, bad)
+
+
+def test_only_the_export_tool_imports_jax():
+    """``tools/export_jax_params.py`` (run where JAX is installed) is the one
+    non-test file beside the JAX package that imports it; no port module
+    and not ``chip_smoke.py`` imports that tool."""
+    tool = os.path.join(ROOT, "tools", "export_jax_params.py")
+    importers = [p for p in source_files() + [tool]
+                 if any(FORBIDDEN.match(n) for n in imported_names(p))]
+    assert importers == [tool]
+    for path in source_files():
+        bad = [n for n in imported_names(path)
+               if re.match(r"^(tools|export_jax_params)(\.|$)", n)]
         assert not bad, (path, bad)
 
 

@@ -20,7 +20,7 @@ from jafpro_tpu.models import inpainter as jinp
 from jafpro_tpu.models import parts as jparts
 from jafpro_tpu.models import propagation as jprop
 
-from jafpro_tpu_torch.bridge import state_dict_from_flax
+from jafpro_tpu_torch.bridge import load_flax
 from jafpro_tpu_torch.models import accumulate as tacc
 from jafpro_tpu_torch.models import common as tcommon
 from jafpro_tpu_torch.models import conv_lstm as tlstm
@@ -74,7 +74,7 @@ def bridged(jmod, tmod, *jargs, seed=0, static=()):
     """Numpy-seeded params for ``jmod``, loaded into ``tmod`` through the
     bridge."""
     params = numpy_params(jmod, *jargs, seed=seed, static=static)
-    tmod.load_state_dict(state_dict_from_flax(params), strict=True)
+    load_flax(tmod, params)
     return params
 
 
