@@ -49,6 +49,24 @@ Phases, each of which raises on failure (nothing is caught):
    default TF32 settings as ``cli evaluate`` runs, held to the same call
    on the CPU within 1e-3 relative.
 
+7. Train: seeded full-width records (4 refs, 24 parts of 200 px, 256x256,
+   the phase-3 mesh's vertices) packed with ``shardio.pack_shard`` into a
+   temporary directory (removed at the end): 8 textonly records for
+   stages 1-2 and 8 interval records for stages 3-4. Each stage reads them
+   through ``ShardReader`` as ``cli train --shards`` does
+   (``cli._raw_batch_source``, the host curriculum, the copy to the card)
+   and takes 1 warm-up and 3 timed steps at ``Config()`` widths and the
+   CLI's batch (4; 2 for stage 2) in bfloat16, the CLI's default; stage 4
+   once more in float32 with TF32 off. Reports s/step (median of 3),
+   samples/s and peak memory; checks finite losses, that exactly the
+   trained modules moved (``bg`` bitwise unchanged in stage 4) and that
+   each stage-4 step launched the rasterizer kernel once, on the batch's
+   4 target poses. Then one stage-1 and one stage-4 step with SGD at
+   64 px (parts of 16, 2 refs, float32, TF32 off) from the same
+   seeded weights on the card and on the CPU (stage 4 at batch 4, see
+   ``TRAIN_REF_BATCH``): losses and each module's update held to a
+   stated tolerance.
+
 Prints the kernels' JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -56,6 +74,7 @@ its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -72,7 +91,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 OPS_PER_PAIR = 40  # fp32 operations per (pixel, face) test in the kernel
 KERNEL_SOURCE = "jafpro_tpu_torch/csrc/rasterizer.cu"
-KERNEL_REPLACES = "jafpro_tpu/geometry/rasterizer_pallas.py:119"
+KERNEL_REPLACES = "jafpro_tpu/geometry/rasterizer_pallas.py:123"
 # PyTorch's own TF32 settings, those the CLI runs under
 TF32_DEFAULTS = (torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32)
@@ -547,6 +566,258 @@ def phase_serve(seed: int, engine, card: str) -> None:
     log(f"[serve] phase 6 took {time.perf_counter() - t0:.1f} s")
 
 
+def pack_train_records(cfg, seed: int, stage: int, n: int, clip_verts,
+                       clip_cams, path: str) -> None:
+    """``n`` seeded records of ``stage``'s layout (``shardio.stage_spec``)
+    at ``cfg``'s widths packed into ``path``: uniform uint8 textures,
+    half-visible masks; interval records take their poses from the clip
+    mesh and an IUV map confined to the body's columns (``make_clip``)."""
+    from jafpro_tpu_torch.data.dataset import face_bbox_from_iuv
+    from jafpro_tpu_torch.data.shardio import (
+        encode_field_u8, pack_shard, stage_spec)
+
+    NR, S, P = cfg.maximum_ref_frames, cfg.image_size, cfg.num_parts
+    spec = stage_spec(stage, num_refs=NR, num_target=cfg.num_target,
+                      image_size=S, part_size=cfg.part_size, num_parts=P,
+                      num_verts=clip_verts.shape[1])
+    rng = np.random.RandomState(seed)
+
+    def records():
+        for i in range(n):
+            rec = {}
+            for name, shape, dtype in spec:
+                if name.endswith("mask_parts"):
+                    rec[name] = (rng.rand(*shape) > 0.5).astype(np.uint8) * 255
+                elif dtype == "uint8":
+                    rec[name] = rng.randint(0, 256, shape).astype(np.uint8)
+            if stage <= 2:
+                yield rec
+                continue
+            clip, _ = make_clip(seed + i, NR + 1, NR, S, 2, P)
+            t = rng.choice(clip_verts.shape[0], NR + 1, replace=False)
+            iuv = clip["tgt_iuv255"][0]
+            rec["tgt_iuv255"] = iuv[None].astype(np.uint8)
+            rec["smpl_mask"] = encode_field_u8(
+                "smpl_mask", (iuv[..., :1] > 0).astype(np.float32))[None]
+            rec["bg_incomplete"] = clip["bg_incomplete"]
+            rec["face_bbox"] = face_bbox_from_iuv(iuv)[None]
+            rec["src_cams"], rec["tgt_cam"] = clip_cams[t[1:]], clip_cams[t[:1]]
+            rec["src_verts"] = clip_verts[t[1:]]
+            rec["tgt_verts"] = clip_verts[t[:1]]
+            yield rec
+
+    pack_shard(spec, records(), path)
+
+
+def snapshot(pipe) -> dict:
+    from jafpro_tpu_torch.bridge import ALL_MODULES
+
+    return {n: [q.detach().clone() for q in getattr(pipe, n).parameters()]
+            for n in ALL_MODULES}
+
+
+def moved_modules(before: dict, pipe) -> tuple:
+    """(modules with a changed param, modules bitwise unchanged)."""
+    moved, same = set(), set()
+    for n, ps in before.items():
+        eq = [torch.equal(a, b) for a, b in zip(ps, getattr(pipe, n)
+                                                 .parameters())]
+        (same if all(eq) else moved).add(n)
+    return moved, same
+
+
+def train_stage(cfg, stage: int, shard_dir: str, engine, verts, seed: int,
+                card: str) -> dict:
+    """One stage as ``cli train --shards`` runs it: 1 warm-up and 3 timed
+    steps at ``cfg``'s widths, the CLI's batch. ``verts`` (V, 3) gives the
+    records' vertex count. Returns its numbers."""
+    import argparse as _argparse
+
+    from jafpro_tpu_torch import cli
+    from jafpro_tpu_torch.geometry import rasterizer as R
+    from jafpro_tpu_torch.pipeline import JAFProPipeline
+    from jafpro_tpu_torch.train.common import (
+        TrainState, apply_curriculum, to_device)
+
+    cfg = dataclasses.replace(cfg, batch_size=2 if stage == 2 else 4)
+    dtype = cfg.compute_dtype
+    pipe = JAFProPipeline(cfg, flow_engine=engine, device="cuda",
+                          generator=torch.Generator().manual_seed(seed))
+    step, lrs = cli.make_step(pipe, stage)
+    state = TrainState(pipe, lrs)
+    args = _argparse.Namespace(shards=shard_dir, stage=stage, seed=seed,
+                               synthetic=False)
+    rng = np.random.RandomState(seed)
+    next_raw, close = cli._raw_batch_source(args, cfg, rng, verts)
+    before = snapshot(pipe)
+    poses = []
+    render = engine.render_fim_wim
+
+    def counted(cam, v):
+        poses.append(cam.shape[0])
+        return render(cam, v)
+
+    engine.render_fim_wim = counted
+    torch.cuda.reset_peak_memory_stats()
+    times, launches, losses = [], [], []
+    try:
+        for _ in range(4):
+            batch = to_device(apply_curriculum(dict(next_raw()), stage, rng,
+                                               cfg.maximum_ref_frames),
+                              torch.device("cuda"))
+            torch.cuda.synchronize()
+            R.rasterize_fim_wim.launches = 0
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append(R.rasterize_fim_wim.launches)
+            losses.append({k: float(v) for k, v in m.items()})
+    finally:
+        close()
+        del engine.render_fim_wim
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved, same = moved_modules(before, pipe)
+    s_step = statistics.median(times[1:])
+    log(f"[train] stage {stage} {dtype}: batch {cfg.batch_size}; step times "
+        f"{[round(t, 4) for t in times]} s (first is warm-up); "
+        f"{s_step:.4f} s/step, {cfg.batch_size / s_step:.3f} samples/s "
+        f"(median of 3); peak memory {peak:.2f} GiB; rasterize_fim_wim "
+        f"launches per step {launches}, poses per launch {poses}; "
+        f"moved {sorted(moved)}; unchanged {sorted(same)} [{card}]")
+    log(f"[train] stage {stage} {dtype} losses: " + "; ".join(
+        ", ".join(f"{k} {v:.5g}" for k, v in m.items()) for m in losses))
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"stage {stage}: a loss is not finite")
+    if moved != set(lrs):
+        raise AssertionError(f"stage {stage}: moved {moved}, trains "
+                             f"{set(lrs)}")
+    if stage == 4:
+        if "bg" not in same:
+            raise AssertionError("stage 4 changed the frozen bg")
+        if launches != [1] * 4 or poses != [cfg.batch_size] * 4:
+            raise AssertionError("a stage-4 step did not rasterize the "
+                                 "batch's poses in one kernel launch")
+    elif any(launches):
+        raise AssertionError(f"stage {stage} rasterized")
+    return {"s_step": s_step, "peak": peak, "launches": sum(launches)}
+
+
+def sgd_step_on(dev: str, stage: int, seed: int, batch: int) -> tuple:
+    """One SGD (lr 1e-3) step of ``stage`` at 64 px, parts of 16, 2 refs,
+    float32 on ``dev``: (before, after (JAX trees), metrics)."""
+    from jafpro_tpu_torch import cli
+    from jafpro_tpu_torch.bridge import jax_params
+    from jafpro_tpu_torch.config import Config
+    from jafpro_tpu_torch.geometry.flow import SMPLFlowEngine
+    from jafpro_tpu_torch.pipeline import JAFProPipeline
+    from jafpro_tpu_torch.train.common import (
+        TrainState, synthetic_batch, synthetic_quad_mesh, to_device)
+
+    verts, faces = synthetic_quad_mesh(6)
+    cfg = Config(image_size=64, part_size=16, maximum_ref_frames=2,
+                 face_crop_size=16, compute_dtype="float32")
+    pipe = JAFProPipeline(cfg, flow_engine=SMPLFlowEngine(
+        faces=faces, image_size=64), device=dev,
+        generator=torch.Generator().manual_seed(seed))
+    b = synthetic_batch(np.random.RandomState(seed), batch=batch,
+                        num_refs=2, part_size=16, image_size=64,
+                        num_verts=verts.shape[0], num_targets=2)
+    b["prev_verts"] = np.tile(verts[None], (batch, 1, 1))
+    b["tgt_verts"] = b["prev_verts"] + np.float32([0.05, 0.0, 0.0])
+    before = jax_params(pipe)
+    step, lrs = cli.make_step(pipe, stage)
+    state = TrainState(pipe, lrs,
+                       optimizer=lambda ps, lr: torch.optim.SGD(ps, 1e-3))
+    state, m = step(state, to_device(b, torch.device(dev)))
+    return before, jax_params(pipe), {k: float(v) for k, v in m.items()}
+
+
+# Card vs CPU, one SGD step: every metric within TRAIN_METRIC_RTOL
+# relative; each module's update (after - before, all its params) within
+# TRAIN_UPDATE_RTOL of its L2 norm. Measured on an H100 at these batches:
+# 2.4e-7 and 9.9e-4 (cuDNN's float32 algorithms sum in another order than
+# the CPU; the texture warp's backward scatters with atomics). Stage 4
+# runs at batch 4: at batch 2 the 64 px image D normalizes 2 values per
+# channel on its 1x1 map and the step is ill-conditioned (a 1e-5 change
+# of the input moves the generator's updates by 2-3% on the CPU alone,
+# tools/train_conditioning.py).
+TRAIN_METRIC_RTOL = 1e-5
+TRAIN_UPDATE_RTOL = 5e-3
+TRAIN_REF_BATCH = {1: 2, 4: 4}
+
+
+def phase_train_reference(seed: int, stages=(1, 4)) -> None:
+    """One SGD step of each of ``stages`` on the card and on the CPU from
+    the same seeded weights; raises unless they agree within
+    ``TRAIN_METRIC_RTOL`` / ``TRAIN_UPDATE_RTOL``."""
+    from jafpro_tpu_torch.checkpoints import flatten
+
+    for stage in stages:
+        B = TRAIN_REF_BATCH[stage]
+        b_gpu, a_gpu, m_gpu = sgd_step_on("cuda", stage, seed, B)
+        b_cpu, a_cpu, m_cpu = sgd_step_on("cpu", stage, seed, B)
+        worst_m = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                      for k in m_cpu)
+        b0, ag, ac = (flatten(t) for t in (b_cpu, a_gpu, a_cpu))
+        err: dict = {}
+        for name, p0 in b0.items():
+            du, dc = ag[name] - p0, ac[name] - p0
+            e = err.setdefault(name.split("/")[0], [0.0, 0.0])
+            e[0] += float(np.square(du - dc, dtype=np.float64).sum())
+            e[1] += float(np.square(dc, dtype=np.float64).sum())
+        moved_cpu = {k for k, (_, n) in err.items() if n > 0}
+        if {k for k, (d, n) in err.items() if n == 0 and d > 0}:
+            raise AssertionError(f"stage {stage}: a module moved on the "
+                                 "card only")
+        rel = {k: (d / n) ** 0.5 for k, (d, n) in err.items()
+               if k in moved_cpu}
+        log(f"[train] card vs CPU, one SGD step of stage {stage} (64 px, "
+            f"batch {B}, float32, TF32 off): metrics max rel {worst_m:.3e} "
+            f"(tolerance {TRAIN_METRIC_RTOL}); update rel L2 per module "
+            + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rel.items()))
+            + f" (tolerance {TRAIN_UPDATE_RTOL})")
+        if not (worst_m <= TRAIN_METRIC_RTOL
+                and max(rel.values()) <= TRAIN_UPDATE_RTOL):
+            raise AssertionError(f"stage {stage}: the card's step disagrees "
+                                 "with the CPU's")
+
+
+def phase_train(seed: int, clip: dict, engine, card: str) -> int:
+    """Phase 7 at ``Config()`` widths. Returns the rasterizer launches of
+    the stage-4 runs."""
+    from jafpro_tpu_torch.config import Config
+
+    cfg = Config()
+    t0 = time.perf_counter()
+    verts, cams = clip["verts"], clip["cams"]
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for kind, stages in (("textonly", (1, 2)), ("interval", (3, 4))):
+            d = os.path.join(root, kind)
+            os.makedirs(d)
+            t1 = time.perf_counter()
+            pack_train_records(cfg, seed + 20, stages[0], 8, verts, cams,
+                               os.path.join(d, f"train-{kind}-00000.shard"))
+            mib = os.path.getsize(os.path.join(
+                d, f"train-{kind}-00000.shard")) / 2 ** 20
+            log(f"[train] packed 8 {kind} records ({mib:.1f} MiB) in "
+                f"{time.perf_counter() - t1:.2f} s")
+            for stage in stages:
+                out[(stage, "bfloat16")] = train_stage(
+                    bf16, stage, d, engine, verts[0], seed, card)
+        log(f"[train] float32: cudnn.allow_tf32="
+            f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}")
+        out[(4, "float32")] = train_stage(
+            dataclasses.replace(cfg, compute_dtype="float32"), 4,
+            os.path.join(root, "interval"), engine, verts[0], seed, card)
+    phase_train_reference(seed)
+    log(f"[train] phase 7 took {time.perf_counter() - t0:.1f} s")
+    return sum(v["launches"] for k, v in out.items() if k[0] == 4)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -613,10 +884,13 @@ def main(argv=None) -> int:
     # ---- phase 6: serve and score ----
     phase_serve(args.seed, engine, card)
 
+    # ---- phase 7: train ----
+    train_launches = phase_train(args.seed, clip, engine, card)
+
     kernels = [{
         "name": "rasterize_fim_wim", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, **k}]
+        "launches": launches, "train_launches": train_launches, **k}]
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

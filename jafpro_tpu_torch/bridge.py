@@ -1,4 +1,4 @@
-"""JAX (flax) variables -> the port's ``state_dict``s.
+"""JAX (flax) variables <-> the port's ``state_dict``s.
 
 A flax tree (nested dicts of arrays, one subtree per submodule) maps onto
 a port module by path, because the port names its children as flax names
@@ -12,9 +12,11 @@ in, never by its rank:
   kernel as it is, torch with its (cin, cout, k, k) weight flipped in
   space, so the weight is the kernel flipped and moved to (cin, cout);
 - ``nn.BatchNorm`` -> ``nn.BatchNorm2d``: params scale / bias -> weight /
-  bias, ``batch_stats`` mean / var -> running_mean / running_var.
-Other leaves (norm affines) keep their names. Takes plain numpy arrays,
-so it imports no JAX.
+  bias, ``batch_stats`` mean / var -> running_mean / running_var;
+- ``nn.Dense`` -> ``nn.Linear``: kernel (in, out) -> weight (out, in).
+Other leaves (norm affines) keep their names. ``flax_from_state_dict``
+undoes every rule, so what the port trains loads into the JAX package.
+Takes and gives plain numpy arrays, so it imports no JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ from jafpro_tpu_torch.models.parts import PartConv
 
 # the generation modules of ``JAFProPipeline``, under the param tree's names
 MODULES = ("accu", "inpaint", "bg", "refine", "pro")
+# every module of the param tree: the generation modules, the image and
+# face discriminators and the frozen VGG19 of the perceptual loss
+ALL_MODULES = MODULES + ("D", "FD", "vgg")
 
 _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
              "var": "running_var"}
@@ -48,7 +53,53 @@ def _convert(mod: nn.Module, leaf: str, a: np.ndarray):
             P * cout, cin, kh, kw)
     if isinstance(mod, nn.Conv2d):
         return "weight", a.transpose(3, 2, 0, 1)
+    if isinstance(mod, nn.Linear):
+        return "weight", a.T
     raise TypeError(f"no kernel rule for {type(mod).__name__}")
+
+
+def _invert(mod: nn.Module, name: str, a: np.ndarray):
+    """(collection, flax leaf name, array) for ``state_dict`` leaf ``name``
+    of ``mod``; None for a buffer flax does not keep. Undoes ``_convert``."""
+    if isinstance(mod, nn.BatchNorm2d):
+        if name == "num_batches_tracked":
+            return None
+        leaf = {v: k for k, v in _BN_NAMES.items()}[name]
+        return ("batch_stats" if leaf in ("mean", "var") else "params",
+                leaf, a)
+    if name != "weight":
+        return "params", name, a
+    if isinstance(mod, nn.ConvTranspose2d):
+        return "params", "kernel", np.flip(a.transpose(2, 3, 0, 1), (0, 1))
+    if isinstance(mod, PartConv):
+        Pc, cin, kh, kw = a.shape
+        P = mod.parts
+        return "params", "kernel", a.reshape(P, Pc // P, cin, kh, kw).transpose(
+            0, 3, 4, 2, 1)
+    if isinstance(mod, nn.Conv2d):
+        return "params", "kernel", a.transpose(2, 3, 1, 0)
+    if isinstance(mod, nn.Linear):
+        return "params", "kernel", a.T
+    raise TypeError(f"no weight rule for {type(mod).__name__}")
+
+
+def flax_from_state_dict(module: nn.Module) -> Dict[str, Any]:
+    """``module``'s parameters and buffers as flax variables
+    (``{"params": ..., "batch_stats": ...}``, the latter only where the
+    module has batch norms), float32 numpy leaves."""
+    out: Dict[str, Any] = {}
+    for key, t in module.state_dict().items():
+        *path, name = key.split(".")
+        mod = module.get_submodule(".".join(path))
+        got = _invert(mod, name, t.detach().float().cpu().numpy())
+        if got is None:
+            continue
+        coll, leaf, a = got
+        node = out.setdefault(coll, {})
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.array(a, dtype=np.float32, order="C")
+    return out
 
 
 def state_dict_from_flax(variables: Dict[str, Any],
@@ -89,8 +140,17 @@ def load_flax(module: nn.Module, variables: Dict[str, Any]) -> None:
                            strict=True)
 
 
-def load_jax_params(pipe: torch.nn.Module, params: Dict[str, Any]) -> None:
-    """Load the five generation modules of ``pipe`` from a JAX param tree
+def load_jax_params(pipe: torch.nn.Module, params: Dict[str, Any],
+                    modules=MODULES) -> None:
+    """Load ``modules`` of ``pipe`` (by default the five generation
+    modules; ``ALL_MODULES`` adds D, FD and vgg) from a JAX param tree
     (``JAFProPipeline.init_params`` layout)."""
-    for name in MODULES:
+    for name in modules:
         load_flax(getattr(pipe, name), params[name])
+
+
+def jax_params(pipe: torch.nn.Module, modules=ALL_MODULES) -> Dict[str, Any]:
+    """``modules`` of ``pipe`` as a JAX param tree (the inverse of
+    ``load_jax_params``)."""
+    return {name: flax_from_state_dict(getattr(pipe, name))
+            for name in modules}

@@ -1,12 +1,15 @@
 """Command-line entry points of the port (``python -m jafpro_tpu_torch.cli``).
 
-``infer -e <exp> -n <num_refs>`` serves the test clips (decoded from the
-dataset or read from a pack) and writes their frames; ``evaluate --pred
-<dir> --gt <dir>`` scores them; ``gif`` stacks frames into GIFs;
-``pack --kind clips`` packs serving clips. The commands mirror
-``jafpro_tpu/cli.py``'s; ``infer`` and ``evaluate`` run on ``--device``,
-``cuda`` unless asked otherwise. Frames are read and written with ``cv2``,
-imported where it is used.
+``train --stage N -n <exp>`` trains stage N (1-4) from packed shards
+(``--shards``), synthetic batches (``--synthetic``) or per-sample dataset
+loads, and saves ``.npz`` checkpoints that ``infer`` serves; ``infer -e
+<exp> -n <num_refs>`` serves the test clips (decoded from the dataset or
+read from a pack) and writes their frames; ``evaluate --pred <dir> --gt
+<dir>`` scores them; ``gif`` stacks frames into GIFs; ``pack --kind
+clips`` packs serving clips. The commands mirror ``jafpro_tpu/cli.py``'s;
+``train``, ``infer`` and ``evaluate`` run on ``--device``, ``cuda`` unless
+asked otherwise. Frames are read and written with ``cv2``, imported where
+it is used.
 """
 
 from __future__ import annotations
@@ -158,8 +161,8 @@ def _parse_streams(spec: str) -> frozenset:
     return streams
 
 
-def build_pipeline(cfg, device):
-    """The serving pipeline on SMPL's faces (``default_smpl_faces_path``);
+def build_pipeline(cfg, device, generator=None):
+    """The pipeline on SMPL's faces (``default_smpl_faces_path``);
     refuses to run without them."""
     from jafpro_tpu_torch.geometry.flow import SMPLFlowEngine
     from jafpro_tpu_torch.pipeline import JAFProPipeline
@@ -167,12 +170,263 @@ def build_pipeline(cfg, device):
     path = default_smpl_faces_path()
     if path is None:
         raise SystemExit(
-            "infer: SMPL faces not found; set JAFPRO_SMPL_FACES to an .npy "
+            "SMPL faces not found; set JAFPRO_SMPL_FACES to an .npy "
             "of SMPL's (13776, 3) face indices (the repository ships none)")
     engine = SMPLFlowEngine.create(
         faces=np.load(path), image_size=cfg.image_size, near=cfg.near,
         far=cfg.far, viewing_angle=cfg.viewing_angle)
-    return JAFProPipeline(cfg, flow_engine=engine, device=device)
+    return JAFProPipeline(cfg, flow_engine=engine, device=device,
+                          generator=generator)
+
+
+# Cross-stage warm start: the modules each stage takes from the previous
+# stage's weights (fresh optimizer state, as the reference's
+# load_state_dict-then-new-Adam start-ups):
+#   stage 2 loads accu          (train/2.text_inpaint_convLSTM.py:79-85)
+#   stage 3 loads accu+inpaint  (train/3.inpaint_global_convLSTM_FGAN.py:123-129)
+#   stage 4 loads accu+inpaint+bg+refine (train/4...py:120-141)
+STAGE_WARM_MODULES = {
+    2: ("accu",),
+    3: ("accu", "inpaint"),
+    4: ("accu", "inpaint", "bg", "refine"),
+}
+
+
+def _warm_start(pipe, cfg, stage: int, init_from: str) -> None:
+    """Load the stage's consumed modules from a donor experiment's ``.npz``
+    (``--init-from <exp>[:<step>]``, its newest when no step is given)."""
+    from jafpro_tpu_torch.bridge import load_flax
+    from jafpro_tpu_torch.checkpoints import (
+        export_name, latest_export, load_params_npz)
+
+    if stage not in STAGE_WARM_MODULES:
+        raise SystemExit(
+            "--init-from applies to stages 2-4 (stage 1 trains from scratch "
+            "in the reference)")
+    donor, _, step_s = init_from.partition(":")
+    donor_dir = os.path.join(cfg.model_save_dir, donor)
+    if step_s:
+        path = os.path.join(donor_dir, export_name(int(step_s)))
+        if not os.path.exists(path):
+            raise SystemExit(f"--init-from: no {path}")
+    else:
+        found = latest_export(donor_dir)
+        if found is None:
+            raise SystemExit(f"--init-from: no checkpoints under {donor_dir}")
+        path = found[1]
+    donor_params = load_params_npz(path)
+    mods = STAGE_WARM_MODULES[stage]
+    for m in mods:
+        if m not in donor_params:
+            raise SystemExit(
+                f"--init-from: donor checkpoint lacks module {m!r} "
+                f"(has {sorted(donor_params)})")
+        load_flax(getattr(pipe, m), donor_params[m])
+    print(f"warm start: {{{','.join(mods)}}} <- {path}")
+
+
+def make_step(pipe, stage: int):
+    """(step function, lrs) of training stage ``stage``."""
+    if stage == 1:
+        from jafpro_tpu_torch.train.stage1 import make_stage1_step, stage1_lrs
+        return make_stage1_step(pipe), stage1_lrs()
+    if stage == 2:
+        from jafpro_tpu_torch.train.stage2 import make_stage2_step, stage2_lrs
+        return make_stage2_step(pipe), stage2_lrs()
+    from jafpro_tpu_torch.train import stage34
+    if stage == 3:
+        return stage34.make_stage3_step(pipe), stage34.stage3_lrs()
+    return stage34.make_stage4_step(pipe), stage34.stage4_lrs()
+
+
+def _shard_paths(shards: str) -> list:
+    import glob
+
+    if os.path.isdir(shards):
+        paths = sorted(glob.glob(os.path.join(shards, "*.shard")))
+    else:
+        paths = sorted(glob.glob(shards))
+    if not paths:
+        raise FileNotFoundError(f"no .shard files match {shards}")
+    return paths
+
+
+def _raw_batch_source(args, cfg, rng, verts):
+    """(next_raw, close): ``next_raw()`` gives a stacked raw batch (before
+    the curriculum) from --shards (the native reader), --synthetic, or
+    per-sample dataset loads; ``close()`` releases the source."""
+    from jafpro_tpu_torch.train.common import synthetic_batch
+
+    if args.shards:
+        from jafpro_tpu_torch.data.shardio import (
+            ShardReader, collapse_target_dims, stage_spec)
+
+        spec = stage_spec(
+            args.stage, num_refs=cfg.maximum_ref_frames,
+            num_target=cfg.num_target, image_size=cfg.image_size,
+            part_size=cfg.part_size, num_parts=cfg.num_parts,
+            num_verts=verts.shape[0] if verts is not None else cfg.num_verts)
+        reader = ShardReader(
+            spec, _shard_paths(args.shards), batch=cfg.batch_size,
+            prefetch=4, threads=2, seed=args.seed, shuffle=True, loop=True)
+        print(f"shard reader: {reader.num_records} records")
+        return (lambda: collapse_target_dims(spec, next(reader))), \
+            reader.close
+
+    if args.synthetic:
+        def synth():
+            b = synthetic_batch(
+                rng, batch=cfg.batch_size, num_refs=cfg.maximum_ref_frames,
+                part_size=cfg.part_size, image_size=cfg.image_size,
+                num_verts=verts.shape[0])
+            b["prev_verts"] = np.tile(verts[None], (cfg.batch_size, 1, 1))
+            b["tgt_verts"] = b["prev_verts"] + np.float32([0.02, 0, 0])
+            return b
+        return synth, lambda: None
+
+    from jafpro_tpu_torch.data.dataset import (
+        list_videos, load_interval_sample, load_textonly_sample)
+
+    vids = list_videos(cfg.data_root, "train")
+    if not vids:
+        raise FileNotFoundError(
+            f"no training videos under {cfg.data_root}/train "
+            "(set JAFPRO_DATA_ROOT, pass --shards, or use --synthetic)")
+
+    def load():
+        samples = []
+        for _ in range(cfg.batch_size):
+            vid = vids[rng.randint(len(vids))]
+            if args.stage <= 2:
+                s = load_textonly_sample(
+                    os.path.join(cfg.data_root, "train"), vid, rng,
+                    cfg.maximum_ref_frames, cfg.num_target,
+                    fix_frame=cfg.fix_frame, self_recon=cfg.self_recon)
+            else:
+                s = load_interval_sample(
+                    os.path.join(cfg.data_root, "train"),
+                    os.path.join(cfg.smpl_root, "train"),
+                    os.path.join(cfg.mask_root, "train"),
+                    vid, rng, cfg.maximum_ref_frames, 1)
+                for k in ("src_imgs", "src_cams", "src_verts",
+                          "src_frame_indices"):
+                    s[k] = s[k][None]  # align to the (B, R, ...) layout
+            samples.append(s)
+        return {k: np.concatenate([s[k] for s in samples])
+                for k in samples[0]}
+    return load, lambda: None
+
+
+def cmd_train(args) -> None:
+    import queue
+
+    from jafpro_tpu_torch.checkpoints import (
+        restore_train_state, save_checkpoint)
+    from jafpro_tpu_torch.device import resolve_device
+    from jafpro_tpu_torch.pipeline import JAFProPipeline
+    from jafpro_tpu_torch.train.common import (
+        TrainState, apply_curriculum, synthetic_quad_mesh, to_device)
+
+    if args.num_devices > 1:
+        raise SystemExit("train: --num-devices > 1 is not supported by the "
+                         "port yet; it trains on one card")
+    dev = resolve_device(args.device)
+    cfg = get_general_options()
+    if args.synthetic:  # the JAX CLI's small synthetic configuration
+        cfg.image_size = 64
+        cfg.part_size = 16
+        cfg.face_crop_size = 16
+        cfg.compute_dtype = "float32"
+        cfg.maximum_ref_frames = 2
+    if args.no_face_gan:
+        cfg.face_GAN = False  # reference flag (options.py; train/4:357-374)
+    if args.dtype:
+        cfg.compute_dtype = args.dtype
+    if args.batch_size:
+        cfg.batch_size = args.batch_size
+    elif args.stage == 2:
+        # the reference's stage-2 schedule trains batch 2 (train/2:64)
+        cfg.batch_size = 2
+    if args.debug:
+        cfg.model_save_interval = 3
+        cfg.vis_interval = 3
+    gen = torch.Generator().manual_seed(args.seed)
+    verts = None
+    if args.synthetic:
+        from jafpro_tpu_torch.geometry.flow import SMPLFlowEngine
+
+        verts, faces = synthetic_quad_mesh(6)
+        pipe = JAFProPipeline(
+            cfg, flow_engine=SMPLFlowEngine.create(
+                faces=faces, image_size=cfg.image_size),
+            device=dev, generator=gen)
+    elif args.stage == 4:
+        pipe = build_pipeline(cfg, dev, gen)
+    else:  # stages 1-3 do not rasterize
+        pipe = JAFProPipeline(cfg, device=dev, generator=gen)
+    if args.init_from:
+        _warm_start(pipe, cfg, args.stage, args.init_from)
+    step_fn, lrs = make_step(pipe, args.stage)
+    state = TrainState(pipe, lrs)
+
+    ckpt_dir = os.path.join(cfg.model_save_dir, args.exp_name)
+    start_it = 0
+    if args.resume:
+        try:
+            prev = restore_train_state(pipe, state, ckpt_dir)
+        except FileNotFoundError as e:
+            raise SystemExit(f"train --resume: {e}")
+        if prev is not None:
+            start_it = prev + 1
+            print(f"resumed from {ckpt_dir}/params_iter_{prev}.npz")
+    os.makedirs(ckpt_dir, exist_ok=True)
+
+    rng = np.random.RandomState(args.seed + start_it)
+    next_raw, close_source = _raw_batch_source(args, cfg, rng, verts)
+    # one feeder thread reads, applies the curriculum and copies batch i+1
+    # to the device while step i runs; one worker keeps the rng draws in
+    # the serial loop's order
+    batch_q: "queue.Queue" = queue.Queue(maxsize=2)
+
+    def feed():
+        try:
+            for _ in range(args.iters):
+                b = apply_curriculum(dict(next_raw()), args.stage, rng,
+                                     cfg.maximum_ref_frames)
+                batch_q.put(to_device(b, dev))
+            batch_q.put(None)
+        except BaseException as e:  # re-raised by the training loop
+            batch_q.put(e)
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    feeder.start()
+    # every step's metrics (G/D/FD/recon/...), one JSON line per step
+    with open(os.path.join(ckpt_dir, "losses.jsonl"),
+              "a" if start_it else "w") as loss_log:
+        for it in range(start_it, start_it + args.iters):
+            batch = batch_q.get()
+            if isinstance(batch, BaseException):
+                raise batch
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            row = {"stage": args.stage, "iter": it,
+                   "seconds": round(seconds, 4)}
+            row.update({k: float(v) for k, v in metrics.items()})
+            loss_log.write(json.dumps(row) + "\n")
+            print(f"[stage{args.stage}] iter {it} loss {row['loss']:.4f} "
+                  f"({seconds:.3f}s)")
+            if it > 0 and it % cfg.model_save_interval == 0:
+                save_checkpoint(ckpt_dir, it, pipe, state)
+    # the feeder has read its last batch; the reader may close only once
+    # no thread is inside it
+    feeder.join()
+    close_source()
+    last = start_it + args.iters - 1
+    save_checkpoint(ckpt_dir, max(last, 0), pipe, state)
+    print("Training Done.")
 
 
 def cmd_infer(args) -> None:
@@ -402,6 +656,40 @@ def cmd_pack(args) -> None:
 def main(argv: Optional[list] = None) -> None:
     p = argparse.ArgumentParser(prog="jafpro_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train")
+    t.add_argument("--stage", type=int, required=True, choices=[1, 2, 3, 4])
+    t.add_argument("--exp_name", "-n", default="exp")
+    t.add_argument("--debug", action="store_true",
+                   help="save every 3 iterations")
+    t.add_argument("--synthetic", action="store_true",
+                   help="random batches on a small config (64 px, parts of "
+                   "16, 2 refs, float32)")
+    t.add_argument("--iters", type=int, default=10)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--batch-size", type=int, default=0,
+                   help="override cfg.batch_size (0 = reference default: 4, "
+                   "2 for stage 2)")
+    t.add_argument("--num-devices", type=int, default=0,
+                   help="only 0 or 1: the port trains on one card")
+    t.add_argument("--shards", default="",
+                   help="packed-shard dir or glob; training then streams "
+                   "through the native reader")
+    t.add_argument("--init-from", default="",
+                   help="cross-stage warm start: load this stage's consumed "
+                   "modules (stage 2: accu; 3: accu+inpaint; "
+                   "4: accu+inpaint+bg+refine) from another experiment's "
+                   "checkpoint, '<exp>[:<step>]' (newest if omitted); "
+                   "optimizer state starts fresh")
+    t.add_argument("--resume", action="store_true",
+                   help="resume params, optimizer state and step from the "
+                   "newest checkpoint of the experiment")
+    t.add_argument("--no-face-gan", action="store_true",
+                   help="no face-D updates and no face term in the G loss")
+    t.add_argument("--dtype", default="",
+                   help="override compute_dtype (e.g. float32)")
+    t.add_argument("--device", default="cuda")
+    t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer")
     i.add_argument("--exp_name", "-e", default="exp")

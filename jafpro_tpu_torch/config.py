@@ -1,7 +1,7 @@
-"""Configuration of the generation and serving paths.
+"""Configuration of the generation, serving and training paths.
 
-The main-path and path fields of ``jafpro_tpu/config.py::Config`` under
-the same names and defaults; training and TPU-only knobs are left out.
+The fields of ``jafpro_tpu/config.py::Config`` that the port reads, under
+the same names and defaults; TPU-only knobs are left out.
 """
 
 from __future__ import annotations
@@ -15,10 +15,22 @@ from typing import Optional
 class Config:
     num_frames: int = 30            # frames per clip (2 s @ 15 FPS)
     maximum_ref_frames: int = 4
+    # targets per textonly sample (reference options.py:23); must match
+    # the value the textonly shards were packed with
+    num_target: int = 3
+    fix_frame: bool = True
+    self_recon: bool = False
+
+    # ---- training schedule ----
+    vis_interval: int = 200
+    model_save_interval: int = 3000
+    batch_size: int = 4
+    face_GAN: bool = True
 
     image_size: int = 256
     part_size: int = 200            # each of the 24 DensePose parts
     num_parts: int = 24
+    face_crop_size: int = 64
 
     num_verts: int = 6890
     num_faces: int = 13776

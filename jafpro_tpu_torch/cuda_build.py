@@ -1,7 +1,9 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's native sources and load them with ``ctypes``: CUDA
+(``*.cu``) with ``nvcc``, host C++ (``*.cc``, the shard reader) with
+``g++``.
 
-Each source under ``csrc/`` exposes a plain ``extern "C"`` entry point that
-takes device pointers, sizes and a ``cudaStream_t`` and returns
+Each CUDA source under ``csrc/`` exposes a plain ``extern "C"`` entry
+point that takes device pointers, sizes and a ``cudaStream_t`` and returns
 ``cudaGetLastError()``; no PyTorch headers are involved, so a build takes
 seconds. Libraries are built at first use into ``_build/`` (git-ignored),
 under a name that hashes the source and the flags, and written to a
@@ -24,6 +26,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")  # -v: registers / shared memory per kernel
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _LOADED: dict = {}
 
@@ -40,10 +43,27 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def find_gxx() -> str:
+    """``$CXX``, else ``g++`` on PATH."""
+    found = shutil.which(os.environ.get("CXX", "") or "g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the shard reader cannot be built")
+
+
+def _toolchain(source: str) -> tuple:
+    """(compiler finder, flags) for ``csrc/<source>``."""
+    if source.endswith(".cu"):
+        return find_nvcc, NVCC_FLAGS
+    if source.endswith(".cc"):
+        return find_gxx, GXX_FLAGS
+    raise ValueError(f"no compiler for {source}")
+
+
 def library_path(source: str) -> str:
     """Where the build of ``csrc/<source>`` lives (hash of source + flags)."""
     with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(_toolchain(source)[1]).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
@@ -58,15 +78,17 @@ def build(source: str) -> tuple:
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, source)]
+    find, flags = _toolchain(source)
+    compiler = find()
+    cmd = [compiler, *flags, "-o", tmp, os.path.join(CSRC_DIR, source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {source}:\n"
+            f"{os.path.basename(compiler)} failed ({proc.returncode}) on "
+            f"{source}:\n"
             f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, path)
     return path, time.perf_counter() - t0, proc.stdout + proc.stderr

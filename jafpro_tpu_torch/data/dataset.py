@@ -1,4 +1,4 @@
-"""DanceVideo clip loading for serving (port of the serving half of
+"""DanceVideo loading for serving and training (port of
 ``jafpro_tpu/data/dataset.py``; numpy and ``cv2`` only).
 
 File protocol (reference ``src/utils.py:11-58`` + ``src/data.py``):
@@ -12,8 +12,11 @@ File protocol (reference ``src/utils.py:11-58`` + ``src/data.py``):
 
 ``load_clip`` assembles the whole-clip dict that
 ``jafpro_tpu_torch.infer.VideoGenerator`` consumes, with the angle-based
-reference selection (reference ``src/data.py:499-528``). ``cv2`` is
-imported where an image is read, so the module imports without it.
+reference selection (reference ``src/data.py:499-528``);
+``load_textonly_sample`` and ``load_interval_sample`` give one training
+sample of stages 1-2 and 3-4, drawing from a ``np.random.RandomState`` in
+the JAX package's order. ``cv2`` is imported where an image is read, so
+the module imports without it.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from jafpro_tpu_torch.data.angles import compute_angle, select_reference_frames
+from jafpro_tpu_torch.data.texture import masks_to_atlas, transfer_texture
 
 
 def _frame_number(path: str) -> int:
@@ -140,3 +144,157 @@ def list_videos(data_root: str, mode: str = "test") -> List[str]:
         return []
     return sorted(n for n in os.listdir(d)
                   if os.path.isdir(os.path.join(d, n)))
+
+
+def face_bbox_from_iuv(iuv255: np.ndarray, image_size: int = 256) -> np.ndarray:
+    """Face bbox (x0, x1, y0, y1) from DensePose parts 23/24 with the
+    reference's -2 / +3 margin (``src/data.py:700-716``); zeros when no
+    face pixel exists (the trainer masks such samples out)."""
+    ys1, xs1 = np.where(iuv255[..., 0] == 23)
+    ys2, xs2 = np.where(iuv255[..., 0] == 24)
+    xs = np.concatenate([xs1, xs2])
+    ys = np.concatenate([ys1, ys2])
+    if xs.size == 0:
+        return np.zeros((4,), np.float32)
+    return np.asarray([
+        max(xs.min() - 2, 0), min(xs.max() + 3, image_size),
+        max(ys.min() - 2, 0), min(ys.max() + 3, image_size),
+    ], np.float32)
+
+
+def sample_frame_indices(
+    T: int, rng: np.random.RandomState, num_inputs: int, num_target: int,
+    fix_frame: bool = True, self_recon: bool = False,
+) -> np.ndarray:
+    """Frame sampling of the texture datasets (``src/data.py:41-63``),
+    laid out [targets..., sources...]. ``fix_frame=False`` (``data.py:52-56``):
+    w.p. 1/3 source 0 is duplicated into sources 1 and 2, w.p. 1/3 into
+    source 1 only. ``self_recon=True`` (``data.py:58-63``): w.p. 0.3 one of
+    the first ``num_inputs`` slots takes source 0's frame."""
+    frames = rng.choice(T, num_inputs + num_target, replace=False)
+    random_number = rng.random_sample()
+    if not fix_frame and num_inputs >= 2:
+        if random_number < 0.33333:
+            if 2 + num_target < frames.size:
+                frames[2 + num_target] = frames[num_target]
+            frames[1 + num_target] = frames[num_target]
+        elif random_number < 0.66666:
+            frames[1 + num_target] = frames[num_target]
+    if self_recon:
+        if rng.random_sample() < 0.3:
+            random_index = rng.choice(num_inputs, 1)
+            frames[random_index] = frames[num_target]
+    return frames
+
+
+def load_textonly_sample(
+    data_dir: str, vid_name: str, rng: np.random.RandomState,
+    num_inputs: int = 4, num_target: int = 3,
+    fix_frame: bool = True, self_recon: bool = False,
+) -> Dict[str, np.ndarray]:
+    """A stage-1/2 sample (reference ``Fusion_dataset_textonly``,
+    ``src/data.py:187-258``): disjoint random reference and target frames,
+    their 800x1200 atlases and masks as 24-part stacks, in float32."""
+    files = list_clip_files(os.path.join(data_dir, vid_name))
+    T = len(files["text"])
+    frames = sample_frame_indices(T, rng, num_inputs, num_target,
+                                  fix_frame=fix_frame, self_recon=self_recon)
+
+    def read_parts(paths, idxs, is_mask):
+        arr = np.stack([_imread(p)[..., 0] if is_mask else _imread(p)
+                        for p in (paths[i] for i in idxs)]).astype(np.float32)
+        if is_mask:
+            arr = (arr / 255.0)[..., None]
+        else:
+            arr = (arr / 255.0 - 0.5) * 2.0
+        return _atlas_to_parts_np(arr, 200)
+
+    src_idx = frames[num_target:]
+    tgt_idx = frames[:num_target]
+    return {
+        "src_parts": read_parts(files["text"], src_idx, False)[None],
+        "src_mask_parts": read_parts(files["mask"], src_idx, True)[None, ..., 0],
+        "tgt_parts": read_parts(files["text"], tgt_idx, False)[None],
+        "tgt_mask_parts": read_parts(files["mask"], tgt_idx, True)[None, ..., 0],
+        "ref_mask": np.ones((1, num_inputs), np.float32),
+    }
+
+
+def load_interval_sample(
+    data_dir: str, smpl_dir: str, mask_dir: str, vid_name: str,
+    rng: np.random.RandomState, num_inputs: int = 4, num_target: int = 1,
+) -> Dict[str, np.ndarray]:
+    """A stage-3/4 sample (reference ``Fusion_dataset_smpl_interval``,
+    ``src/data.py:608-776``): images, IUVs, atlases and SMPL params of
+    disjoint random frames in the step's batch layout (the curriculum
+    fills the ``prev_*`` fields)."""
+    files = list_clip_files(os.path.join(data_dir, vid_name))
+    T = len(files["img"])
+    frames = rng.choice(T, num_inputs + num_target, replace=False)
+    src_idx, tgt_idx = frames[num_target:], frames[:num_target]
+
+    tex = np.stack([_imread(files["text"][i]) for i in src_idx]).astype(np.float32)
+    tex = (tex / 255.0 - 0.5) * 2.0
+    masks = np.stack(
+        [_imread(files["mask"][i])[..., 0] for i in src_idx]).astype(np.float32) / 255.0
+    src_parts = _atlas_to_parts_np(tex, 200)
+    mask_parts = _atlas_to_parts_np(masks[..., None], 200)[..., 0]
+
+    def read_imgs(paths, idxs):
+        a = np.stack([_imread(paths[i]) for i in idxs]).astype(np.float32)
+        return (a / 255.0 - 0.5) * 2.0
+
+    src_img = read_imgs(files["img"], src_idx)
+    tgt_img = read_imgs(files["img"], tgt_idx)
+    src_iuv255 = np.stack(
+        [_imread(files["iuv"][i]) for i in src_idx]).astype(np.float32)
+    tgt_iuv255 = np.stack(
+        [_imread(files["iuv"][i]) for i in tgt_idx]).astype(np.float32)
+
+    with open(os.path.join(smpl_dir, vid_name, "pose_shape.pkl"), "rb") as f:
+        smpl = pickle.load(f)
+    cams = np.asarray(smpl["cams"], np.float32)
+    verts = np.asarray(smpl["vertices"], np.float32)
+
+    rm_dir = os.path.join(mask_dir, vid_name)
+    rm_files = sorted((os.path.join(rm_dir, n) for n in os.listdir(rm_dir)
+                       if n.endswith("png")), key=_frame_number)
+    smpl_mask = (_imread(rm_files[tgt_idx[0]])[..., :1].astype(np.float32)
+                 / 255.0)
+
+    in_image = (src_iuv255[0, ..., 0] > 0).astype(np.float32)[..., None]
+    bg_incomplete = (1 - in_image) * src_img[0] + in_image * rng.randn(
+        *src_img[0].shape).astype(np.float32)
+
+    # the reference's other stage-3/4 mask fields (``src/data.py:680-720``):
+    # produced but read by no loss (train/3:213-220, train/4:224-228)
+    face_mask = np.isin(tgt_iuv255[0, ..., 0], (23, 24)).astype(np.float32)
+    src_mask_in_image = (src_iuv255[..., 0] > 0).astype(np.float32)
+    union_atlas = masks_to_atlas(mask_parts.max(axis=0))
+    src_area = transfer_texture(
+        union_atlas.astype(np.float32), tgt_iuv255[0])
+    tgt_mask_in_image = (tgt_iuv255[0, ..., 0] > 0).astype(np.float32)
+    image_inpaint_area = np.logical_xor(
+        tgt_mask_in_image > 0, src_area > 0).astype(np.float32)
+
+    return {
+        "src_parts": src_parts[None],
+        "src_mask_parts": mask_parts[None],
+        "ref_mask": np.ones((1, num_inputs), np.float32),
+        "face_mask": face_mask[None, ..., None],          # (1, S, S, 1)
+        "src_mask_in_image": src_mask_in_image[None],     # (1, R, S, S)
+        "image_inpaint_area": image_inpaint_area[None],   # (1, S, S)
+        "tgt_iuv255": tgt_iuv255[:1],                     # (1, S, S, 3)
+        "tgt_iuv": ((tgt_iuv255[0] / 255.0 - 0.5) * 2.0)[None],
+        "tgt_img": tgt_img[:1],
+        "src_img_first": src_img[:1],
+        "src_imgs": src_img,
+        "bg_incomplete": bg_incomplete[None],
+        "smpl_mask": smpl_mask[None],
+        "face_bbox": face_bbox_from_iuv(tgt_iuv255[0])[None],
+        "src_frame_indices": src_idx.astype(np.int32),
+        "tgt_cam": cams[tgt_idx[:1]],
+        "tgt_verts": verts[tgt_idx[:1]],
+        "src_cams": cams[src_idx],
+        "src_verts": verts[src_idx],
+    }

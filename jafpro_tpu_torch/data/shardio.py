@@ -1,22 +1,26 @@
-"""Packed serving clips (port of the serving half of
-``jafpro_tpu/data/shardio.py``; numpy only).
+"""Packed shards: training records and serving clips (port of
+``jafpro_tpu/data/shardio.py``; numpy, and ``ctypes`` for the reader).
 
 A record layout is declared by a spec: ordered (name, shape, dtype)
 fields. ``pack_shard`` writes fixed-size records behind a header that
-holds a hash of the spec; ``ClipPackReader`` reads one whole serving clip
-per record with plain file reads. Files are byte-compatible with the JAX
-package's: either package reads what the other packed. The native
-training reader (``ShardReader``) is not ported.
+holds a hash of the spec. ``ShardReader`` streams shuffled training
+batches through the native reader ``csrc/shardio.cc`` (the port's copy of
+``native/shardio.cc``, built with ``g++`` at first use into ``_build/``),
+so one seed gives both packages the same batches; ``ClipPackReader`` reads
+one whole serving clip per record with plain file reads. Files are
+byte-compatible with the JAX package's: either package reads what the
+other packed.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import itertools
 import json
 import os
 import struct
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -138,6 +142,157 @@ def encode_field_u8(name: str, value: np.ndarray) -> np.ndarray:
     else:
         scaled = np.rint(value)  # raw 0..255 codes
     return np.clip(scaled, 0.0, 255.0).astype(np.uint8)
+
+
+def _lib() -> ctypes.CDLL:
+    """The native reader, built at first use; argtypes declared once."""
+    from jafpro_tpu_torch import cuda_build
+
+    lib = cuda_build.load("shardio.cc")
+    if lib.shardio_open.restype is not ctypes.c_void_p:
+        lib.shardio_open.restype = ctypes.c_void_p
+        lib.shardio_open.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_uint64,
+            ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint64, ctypes.c_int, ctypes.c_int]
+        lib.shardio_next.restype = ctypes.c_int64
+        lib.shardio_next.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.shardio_num_records.restype = ctypes.c_int64
+        lib.shardio_num_records.argtypes = [ctypes.c_void_p]
+        lib.shardio_close.restype = None
+        lib.shardio_close.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+class ShardReader:
+    """Batches of ``batch`` records from packed shards, read ahead by
+    ``threads`` native workers into a ring of ``prefetch`` batches. With
+    ``shuffle`` every epoch visits all records in an order fixed by
+    (``seed``, epoch); with one thread the batches come in that order,
+    with more they may arrive out of order. ``loop=False`` stops after
+    the last whole batch."""
+
+    def __init__(self, spec: Spec, paths: List[str], batch: int = 1,
+                 prefetch: int = 2, threads: int = 2, seed: int = 0,
+                 shuffle: bool = True, loop: bool = True):
+        self.spec = list(spec)
+        self.batch = batch
+        self.rb = record_bytes(spec)
+        self._h = None
+        headers = {p: _check_header(p, spec, self.rb) for p in paths}
+        if len(set(headers.values())) > 1:
+            raise IOError(
+                "mixed headered/headerless shards in one reader: "
+                f"{headers} — re-run `cli pack` on the legacy files")
+        header = next(iter(headers.values())) if headers else 0
+        self._lib = _lib()
+        arr = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+        self._h = self._lib.shardio_open(
+            arr, len(paths), self.rb, header, batch, prefetch, threads,
+            seed, int(shuffle), int(loop))
+        if not self._h:
+            raise IOError(f"shardio_open failed for {paths}")
+        self.num_records = int(self._lib.shardio_num_records(self._h))
+        self._buf = np.empty(self.rb * batch, np.uint8)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        if not self._h:
+            raise StopIteration
+        idx = self._lib.shardio_next(
+            self._h, self._buf.ctypes.data_as(ctypes.c_void_p))
+        if idx < 0:
+            raise StopIteration
+        return unpack_batch(self.spec, self._buf, self.batch)
+
+    def close(self) -> None:
+        """Stop the workers and close the files."""
+        if self._h:
+            self._lib.shardio_close(self._h)
+            self._h = None
+
+    def __enter__(self) -> "ShardReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):
+        self.close()
+
+
+def interval_spec(num_refs: int = 4, image_size: int = 256,
+                  part_size: int = 200, num_parts: int = 24,
+                  num_verts: int = 6890) -> Spec:
+    """Record layout of a stage-3/4 training sample. Image-like fields are
+    uint8 and expanded on the device (``train.common.normalize_batch``);
+    ``tgt_iuv`` is derived there from ``tgt_iuv255``. ``bg_incomplete``
+    stays float32: it carries unclipped Gaussian noise
+    (``train/4:230-231``)."""
+    S, p, P, R = image_size, part_size, num_parts, num_refs
+    return [
+        ("src_parts", (R, P, p, p, 3), "uint8"),
+        ("src_mask_parts", (R, P, p, p), "uint8"),
+        ("tgt_iuv255", (1, S, S, 3), "uint8"),
+        ("tgt_img", (1, S, S, 3), "uint8"),
+        ("src_img_first", (1, S, S, 3), "uint8"),
+        ("src_imgs", (R, S, S, 3), "uint8"),
+        ("bg_incomplete", (1, S, S, 3), "float32"),
+        ("smpl_mask", (1, S, S, 1), "uint8"),
+        ("face_bbox", (1, 4), "float32"),
+        ("src_cams", (R, 3), "float32"),
+        ("src_verts", (R, num_verts, 3), "float32"),
+        ("tgt_cam", (1, 3), "float32"),
+        ("tgt_verts", (1, num_verts, 3), "float32"),
+    ]
+
+
+# interval-record fields stored with a leading singleton target dim; the
+# step takes them as (B, ...)
+_SINGLE_TARGET_FIELDS = frozenset({
+    "tgt_iuv255", "tgt_iuv", "tgt_img", "src_img_first", "bg_incomplete",
+    "smpl_mask", "face_bbox", "tgt_cam", "tgt_verts"})
+
+
+def collapse_target_dims(spec: Spec,
+                         batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Merge each record's singleton target dim into the batch dim (the
+    fields in ``_SINGLE_TARGET_FIELDS``); per-reference (R, ...) and
+    multi-target (T, ...) fields keep their axis."""
+    out = {}
+    for name, shape, _ in spec:
+        v = batch[name]
+        if name in _SINGLE_TARGET_FIELDS:
+            v = v.reshape((v.shape[0],) + tuple(shape)[1:])
+        out[name] = v
+    return out
+
+
+def textonly_spec(num_refs: int = 4, num_target: int = 3,
+                  part_size: int = 200, num_parts: int = 24) -> Spec:
+    """Record layout of a stage-1/2 (texture-only) training sample, uint8
+    (27 MB at the full widths)."""
+    p, P, R, T = part_size, num_parts, num_refs, num_target
+    return [
+        ("src_parts", (R, P, p, p, 3), "uint8"),
+        ("src_mask_parts", (R, P, p, p), "uint8"),
+        ("tgt_parts", (T, P, p, p, 3), "uint8"),
+        ("tgt_mask_parts", (T, P, p, p), "uint8"),
+    ]
+
+
+def stage_spec(stage: int, num_refs: int = 4, num_target: int = 3,
+               image_size: int = 256, part_size: int = 200,
+               num_parts: int = 24, num_verts: int = 6890) -> Spec:
+    """The record layout a training stage reads."""
+    if stage <= 2:
+        return textonly_spec(num_refs=num_refs, num_target=num_target,
+                             part_size=part_size, num_parts=num_parts)
+    return interval_spec(num_refs=num_refs, image_size=image_size,
+                         part_size=part_size, num_parts=num_parts,
+                         num_verts=num_verts)
 
 
 def clip_spec(num_refs: int = 4, frames: int = 30, image_size: int = 256,

@@ -108,6 +108,36 @@ def texture_warp_lut(lut: torch.Tensor, iuv255: torch.Tensor) -> torch.Tensor:
     return torch.where((pid > 0)[..., None], out, torch.zeros_like(out))
 
 
+def transfer_texture(atlas: np.ndarray, iuv255: np.ndarray,
+                     part_size: int = 200) -> np.ndarray:
+    """Nearest-texel atlas -> image warp on the host (the reference's
+    ``TransferTexture``, ``src/utils.py:369-394``): each target pixel takes
+    the texel at its rounded UV in its part's tile. atlas (4p, 6p[, C]),
+    iuv255 (S, S, 3) -> (S, S[, C]), zeros at the background."""
+    p = part_size
+    pid = iuv255[..., 0].astype(np.int32)
+    U = np.rint(iuv255[..., 1] / 255.0 * (p - 1)).astype(np.int64)
+    V = np.rint(iuv255[..., 2] / 255.0 * (p - 1)).astype(np.int64)
+    out = np.zeros(iuv255.shape[:2] + atlas.shape[2:], atlas.dtype)
+    for part in range(1, 25):
+        i_cor = (part - 1) // 6
+        j_cor = part - i_cor * 6 - 1
+        tex = atlas[i_cor * p:(i_cor + 1) * p, j_cor * p:(j_cor + 1) * p]
+        ys, xs = np.where(pid == part)
+        out[ys, xs] = tex[U[ys, xs], (p - 1) - V[ys, xs]]
+    return out
+
+
+def masks_to_atlas(part_masks: np.ndarray) -> np.ndarray:
+    """(24, p, p) -> (4p, 6p) atlas-layout mask."""
+    p = part_masks.shape[1]
+    out = np.zeros((4 * p, 6 * p), part_masks.dtype)
+    for i in range(24):
+        r, c = i // 6, i % 6
+        out[r * p:(r + 1) * p, c * p:(c + 1) * p] = part_masks[i]
+    return out
+
+
 def write_gif(path: str, frames: np.ndarray, fps: int = 10) -> str:
     """GIF export with PIL (imported here). frames: (T, H, W[, 3]) floats
     in [0, 1] or uint8. Writes ``<path without extension>.gif``."""

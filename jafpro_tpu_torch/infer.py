@@ -26,32 +26,12 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from jafpro_tpu_torch.data.shardio import U8_SYMMETRIC_FIELDS, U8_UNIT_FIELDS
 from jafpro_tpu_torch.data.texture import (
     build_texture_warp_lut, parts_to_atlas, texture_warp_atlas,
     texture_warp_lut)
 from jafpro_tpu_torch.geometry.flow import cal_bc_transform
 from jafpro_tpu_torch.pipeline import JAFProPipeline, to_nchw
-
-
-def normalize_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Expand uint8 wire-format fields to their float semantics and derive
-    ``tgt_iuv`` from ``tgt_iuv255`` when absent; float fields pass through
-    (port of ``jafpro_tpu/train/common.py::normalize_batch``)."""
-    out = dict(batch)
-    for k, v in batch.items():
-        if v.dtype != torch.uint8:
-            continue
-        f = v.float()
-        if k in U8_SYMMETRIC_FIELDS:
-            out[k] = f / 255.0 * 2.0 - 1.0
-        elif k in U8_UNIT_FIELDS:
-            out[k] = f / 255.0
-        else:  # raw codes and unknown fields: value-preserving cast
-            out[k] = f
-    if "tgt_iuv" not in out and "tgt_iuv255" in out:
-        out["tgt_iuv"] = (out["tgt_iuv255"] / 255.0 - 0.5) * 2.0
-    return out
+from jafpro_tpu_torch.train.common import normalize_batch
 
 
 def _encode_u8(x: torch.Tensor) -> torch.Tensor:

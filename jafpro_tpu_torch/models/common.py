@@ -37,6 +37,22 @@ class Conv2d(nn.Conv2d):
                         self.padding, 1, self.groups)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype`` (None: the input's
+    dtype), like flax ``nn.Dense``; the flax kernel (in, out) is the
+    transposed weight (``bridge.py``)."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(cin, cout, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or x.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
 class ConvLReLU(nn.Module):
     """Conv + LeakyReLU(0.2) (the reference's ``Downsampler``)."""
 
@@ -138,8 +154,9 @@ def _truncated_normal_(t: torch.Tensor, std: float,
 
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise ``module``'s parameters with flax's default initialisers
-    (lecun truncated-normal kernels of convs and transposed convs, zero
-    biases, uniform [0, 1) LayerNorm gamma), drawing from ``generator``
+    (lecun truncated-normal kernels of convs, transposed convs and dense
+    layers, zero biases, uniform [0, 1) LayerNorm gamma), drawing from
+    ``generator``
     (a CPU generator) in module order."""
     # stddev of a unit-variance normal truncated to +-2 (flax's constant)
     trunc = 0.87962566103423978
@@ -152,6 +169,11 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 fan_in = cin * m.weight.shape[2] * m.weight.shape[3]
                 _truncated_normal_(m.weight, math.sqrt(1.0 / fan_in) / trunc,
                                    generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                _truncated_normal_(m.weight, math.sqrt(
+                    1.0 / m.weight.shape[1]) / trunc, generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, SampleLayerNorm):

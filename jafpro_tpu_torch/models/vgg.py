@@ -5,7 +5,8 @@ conv stack with the max pools replaced by 2x2 average pools, returning the
 pre-ReLU outputs of conv1_2, conv2_2, conv3_2, conv4_2 and conv5_2. NCHW.
 Children carry the flax names (``conv1_1`` ...), so a flax tree loads
 through ``bridge.load_flax``; ``load_torch_vgg19`` maps a torchvision
-checkpoint onto the same names.
+checkpoint onto the same names. ``compute_dtype`` is flax's ``dtype``
+(None: the input's dtype).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from jafpro_tpu_torch.models.common import Conv2d
 
 # torchvision cfg 'E' conv channels per block
 _BLOCKS = ((64, 64), (128, 128), (256, 256, 256, 256),
@@ -30,13 +33,13 @@ def _conv_names() -> List[str]:
 
 
 class VGG19Features(nn.Module):
-    def __init__(self):
+    def __init__(self, compute_dtype=None):
         super().__init__()
         cin = 3
         for b, widths in enumerate(_BLOCKS):
             for i, w in enumerate(widths):
-                self.add_module(f"conv{b + 1}_{i + 1}",
-                                nn.Conv2d(cin, w, 3, padding=1))
+                self.add_module(f"conv{b + 1}_{i + 1}", Conv2d(
+                    cin, w, 3, padding=1, compute_dtype=compute_dtype))
                 cin = w
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:

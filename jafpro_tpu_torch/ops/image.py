@@ -8,7 +8,15 @@ import torch.nn.functional as F
 
 
 def avg_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
-    """Avg pool k=3 s=2 p=1, count_include_pad=True (torch default)."""
+    """Avg pool k=3 s=2 p=1, count_include_pad=True (torch default).
+
+    A tensor that needs a gradient is made contiguous first: on CUDA,
+    ``avg_pool2d``'s backward of a channels-last input (what a conv gives
+    a permuted channels-last image) is wrong, off by ~100% relative against
+    the CPU and float64 (measured on an H100, torch 2.11). Its forward is
+    right, so inference keeps the layout it is given."""
+    if x.requires_grad:
+        x = x.contiguous()
     return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
 
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernel against its plain PyTorch version, and a small
+training step against the CPU's, on the card.
 
 Marked ``cuda``: each test skips where there is no CUDA device (decided
 inside the test). Run on a GPU host with
@@ -102,3 +103,37 @@ def test_generate_batch_one_launch_on_card(cuda):
         for i in range(2):
             d = (batch[k][i] - singles[i][k]).abs().max().item()
             assert d <= 1e-4, (k, i, d)
+
+
+def test_stage4_step_card_vs_cpu(cuda):
+    """One SGD step of training stage 4 at 64 px (parts of 16, 2 refs,
+    batch 2, float32, TF32 off) on the card and on the CPU from the same
+    seeded weights: metrics and every update within ``chip_smoke``'s
+    stated tolerances (``TRAIN_METRIC_RTOL``, ``TRAIN_UPDATE_RTOL``)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.phase_train_reference(0, stages=(4,))
+
+
+def test_avg_pool_gradient_of_channels_last_input(cuda):
+    """``avg_pool_3x3s2``'s gradient on the card equals the CPU's for a
+    permuted channels-last input (CUDA's ``avg_pool2d`` backward gets this
+    layout wrong; the wrapper makes such an input contiguous)."""
+    from jafpro_tpu_torch.ops.image import avg_pool_3x3s2
+
+    x = np.random.RandomState(0).randn(2, 64, 64, 8).astype(np.float32)
+    r = np.random.RandomState(1).randn(2, 8, 32, 32).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        y = avg_pool_3x3s2(xt.permute(0, 3, 1, 2))
+        (g,) = torch.autograd.grad((y * torch.tensor(r, device=dev)).sum(), xt)
+        grads.append(g.cpu())
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-6

@@ -241,8 +241,8 @@ def test_bridge_conv_transpose_rule():
                                atol=1e-5, rtol=0)
     k = np.asarray(v["params"]["kernel"])
     assert not np.allclose(tm.weight.detach().numpy(), k.transpose(2, 3, 0, 1))
-    with pytest.raises(TypeError):
-        state_dict_from_flax(v, torch.nn.Linear(2, 3))
+    with pytest.raises(TypeError):  # a module type with no kernel rule
+        state_dict_from_flax(v, torch.nn.Bilinear(2, 2, 3))
 
 
 # ---------------------------------------------- torch-checkpoint loaders
