@@ -67,6 +67,25 @@ Phases, each of which raises on failure (nothing is caught):
    ``TRAIN_REF_BATCH``): losses and each module's update held to a
    stated tolerance.
 
+8. The body path: ``HumanModelRecovery`` (full ResNet50 depth) on 30
+   seeded 224x224 images in float32 (TF32 off) and bfloat16 with
+   ``get_details`` on its theta; ``SMPLModel`` at SMPL's sizes on the
+   phase-3 sphere (seeded blend shapes and weights) for 30 seeded
+   moderate poses; ``SMPLRenderer`` at 256x256, T = 3, on those meshes:
+   ``render_depth`` (the kernel's depth output), ``extract_tex_from_image``,
+   ``render`` with lighting and ``render_silhouettes(edge_gradients=True)``
+   with a backward to the vertices and camera. Checks shapes, finiteness
+   and one kernel launch per rasterizing call; reports each step's ms
+   (median of 3) and peak memory. Then the same path at 64x64 on 2 poses
+   on the card and on the CPU: HMR theta within 1e-4 relative, SMPL
+   vertices 1e-5, rendered images 1e-4, vertex gradients 1e-3 relative L2.
+
+Phase 3 also runs the kernel with its depth output on every scene (depth
+within 1e-6 relative of the plain version's, 0 at background; whether it
+is bitwise is printed), checks the gradient's recompute of weights and
+depth (``winner_weights_depth``) against the kernel's, and times the
+kernel with and without the depth output in turns.
+
 Prints the kernels' JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -210,24 +229,51 @@ def survivor_stats(prep, fim: torch.Tensor, S: int) -> dict:
 
 
 def compare_kernel(face_verts: torch.Tensor, S: int, what: str) -> dict:
+    """The kernel with its depth output off and on against the plain
+    version: face ids equal, weights within 1e-5, depth within 1e-6
+    relative (the same arithmetic; whether it is bitwise is logged); and
+    the weights and depth ``winner_weights_depth`` recomputes for the
+    gradient against the kernel's (1e-5, 1e-6 relative)."""
     from jafpro_tpu_torch.geometry import rasterizer as R
 
     prep = R.prepare_faces(face_verts, S)
     fim, wim = R.rasterize_prepared_cuda(prep, S, 0.1, 25.0)
-    rfim, rwim = R.rasterize_prepared_reference(prep, S, 0.1, 25.0)
+    dfim, dwim, dim = R.rasterize_prepared_cuda(prep, S, 0.1, 25.0,
+                                                return_depth=True)
+    rfim, rwim, rdim = R.rasterize_prepared_reference(prep, S, 0.1, 25.0,
+                                                      return_depth=True)
+    gw, gd = R.winner_weights_depth(face_verts, dfim, S)
     torch.cuda.synchronize()
-    mismatch = int((fim != rfim).sum().item())
-    werr = float((wim - rwim).abs().max().item())
-    cover = float((fim >= 0).float().mean().item())
+    mismatch = int((fim != rfim).sum().item()) + int(
+        (dfim != rfim).sum().item())
+    werr = max(float((wim - rwim).abs().max().item()),
+               float((dwim - rwim).abs().max().item()))
+    found = rfim >= 0
+    denom = rdim.abs().clamp(min=1e-30)
+    derr = float(((dim - rdim).abs() / denom)[found].max().item())
+    bg_ok = bool((dim[~found] == 0).all().item())
+    bitwise = bool(torch.equal(dim, rdim))
+    gwerr = float((gw - dwim).abs().max().item())
+    gderr = float(((gd - dim).abs() / denom)[found].max().item())
+    cover = float(found.float().mean().item())
     log(f"[kernel] {what}: B={face_verts.shape[0]} F={face_verts.shape[1]} "
         f"S={S} fim_mismatch={mismatch} wim_max_abs={werr:.3e} "
+        f"depth_max_rel={derr:.3e} depth_bitwise={bitwise} "
+        f"recompute wim_max_abs={gwerr:.3e} depth_max_rel={gderr:.3e} "
         f"coverage={cover:.3f}")
     if mismatch or not werr <= 1e-5:
         raise AssertionError(f"kernel disagrees with plain version ({what})")
+    if not (derr <= 1e-6 and bg_ok):
+        raise AssertionError(f"kernel depth disagrees with plain version "
+                             f"({what})")
+    if not (gwerr <= 1e-5 and gderr <= 1e-6):
+        raise AssertionError(f"the gradient's recompute disagrees with the "
+                             f"kernel ({what})")
     if cover <= 0.01:
         raise AssertionError(f"scene {what} covers no pixels")
     return {"prep": prep, "fim": fim, "fim_mismatch": mismatch,
-            "wim_max_abs": werr}
+            "wim_max_abs": werr, "depth_max_rel": derr,
+            "depth_bitwise": bitwise}
 
 
 def make_clip(seed: int, T: int, R: int, S: int, p: int, P: int):
@@ -300,6 +346,13 @@ def phase_kernel(seed: int, clip: dict, faces: np.ndarray, S: int,
         lambda: R.rasterize_prepared_cuda(prep, S, 0.1, 25.0), 20)
     kernel_shuf_ms = cuda_time_ms(
         lambda: R.rasterize_prepared_cuda(prep_shuf, S, 0.1, 25.0), 20)
+    # with the depth output, and once more without, in turns
+    depth_ms = cuda_time_ms(lambda: R.rasterize_prepared_cuda(
+        prep, S, 0.1, 25.0, return_depth=True), 20)
+    kernel_ms2 = cuda_time_ms(
+        lambda: R.rasterize_prepared_cuda(prep, S, 0.1, 25.0), 20)
+    depth_ms2 = cuda_time_ms(lambda: R.rasterize_prepared_cuda(
+        prep, S, 0.1, 25.0, return_depth=True), 20)
     wrapper_ms = cuda_time_ms(lambda: R.rasterize_fim_wim(fv_clip, S), 20)
     plain_ms = cuda_time_ms(
         lambda: R.rasterize_prepared_reference(prep, S, 0.1, 25.0), 1)
@@ -310,12 +363,19 @@ def phase_kernel(seed: int, clip: dict, faces: np.ndarray, S: int,
     ops_s = OPS_PER_PAIR * pairs / PEAK_FP32_FLOPS
     bytes_s = n_bytes / PEAK_BYTES_PER_S
     bound_ms = 1e3 * max(ops_s, bytes_s)
+    depth_bytes_s = (n_bytes + B * S * S * 4) / PEAK_BYTES_PER_S
+    depth_bound_ms = 1e3 * max(ops_s, depth_bytes_s)
     log(f"[kernel] clip: kernel {kernel_ms:.4f} ms (shuffled face order "
         f"{kernel_shuf_ms:.4f} ms), wrapper (prep+kernel) "
         f"{wrapper_ms:.4f} ms, plain {plain_ms:.2f} ms per 30-pose clip; "
         f"bbox pairs {pairs} of dense {dense_pairs} "
         f"({pairs / dense_pairs:.5f}); bound {bound_ms:.5f} ms "
         f"({'operations' if ops_s >= bytes_s else 'bytes'}) [{card}]")
+    log(f"[kernel] clip with the depth output: {depth_ms:.4f} / "
+        f"{depth_ms2:.4f} ms against {kernel_ms:.4f} / {kernel_ms2:.4f} ms "
+        f"without (in turns: off, on, off, on); ratio "
+        f"{(depth_ms + depth_ms2) / (kernel_ms + kernel_ms2):.3f}; bound "
+        f"with depth {depth_bound_ms:.5f} ms [{card}]")
     for key, (fv, _) in scenes.items():
         st = survivor_stats(res[key]["prep"], res[key]["fim"], S)
         log(f"[kernel] {key}: faces tested per body tile mean "
@@ -328,6 +388,9 @@ def phase_kernel(seed: int, clip: dict, faces: np.ndarray, S: int,
         "library_ms": None,
         "fim_mismatch": max(r["fim_mismatch"] for r in res.values()),
         "ms_shuffled": kernel_shuf_ms,
+        "depth_ms": depth_ms, "depth_bound_ms": depth_bound_ms,
+        "depth_max_rel_err": max(r["depth_max_rel"] for r in res.values()),
+        "depth_bitwise": all(r["depth_bitwise"] for r in res.values()),
     }
 
 
@@ -818,6 +881,222 @@ def phase_train(seed: int, clip: dict, engine, card: str) -> int:
     return sum(v["launches"] for k, v in out.items() if k[0] == 4)
 
 
+def median_ms(fn, n: int = 3) -> tuple:
+    """One warm-up call of ``fn``, then ``n`` timed calls, each ending in a
+    synchronize: (median ms, the times)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), times
+
+
+def body_inputs(seed: int, n: int, S: int, hmr_size: int) -> dict:
+    """Seeded inputs of the body path: ``n`` images for HMR, moderate
+    poses (|theta| <= 0.3) and shapes, cameras, images to texture from and
+    a cotangent for the silhouettes."""
+    rng = np.random.RandomState(seed + 30)
+    f32 = np.float32
+    return {
+        "hmr_imgs": rng.uniform(-1, 1, (n, 3, hmr_size, hmr_size)).astype(f32),
+        "beta": (0.5 * rng.randn(n, 10)).astype(f32),
+        "theta": rng.uniform(-0.3, 0.3, (n, 72)).astype(f32),
+        "cam": np.concatenate([rng.uniform(0.85, 0.95, (n, 1)),
+                               rng.uniform(-0.05, 0.05, (n, 2))], 1
+                              ).astype(f32),
+        "imgs": rng.uniform(-1, 1, (n, 3, S, S)).astype(f32),
+        "weight": rng.uniform(0.5, 1.5, (n, S, S)).astype(f32),
+    }
+
+
+def body_models(seed: int, dev: str, S: int):
+    """HMR (float32), SMPL on the phase-3 sphere (SMPL's sizes) and the
+    renderer with some directional light, all from seeds, on ``dev``."""
+    from jafpro_tpu_torch.geometry.renderer import SMPLRenderer
+    from jafpro_tpu_torch.geometry.smpl import SMPLModel
+    from jafpro_tpu_torch.models.hmr import HumanModelRecovery
+    from jafpro_tpu_torch.utils.meshproxy import uv_sphere
+
+    verts, faces = uv_sphere()
+    template = verts * np.float32([0.35, 0.9, 0.35])
+    hmr = HumanModelRecovery(device=dev,
+                             generator=torch.Generator().manual_seed(seed))
+    smpl = SMPLModel.synthetic(seed=seed, v_template=template, faces=faces,
+                               device=dev)
+    rend = SMPLRenderer(faces=faces, image_size=S, tex_size=3, device=dev,
+                        light_intensity_ambient=0.7,
+                        light_intensity_directional=0.5,
+                        light_direction=(0.0, 0.6, -0.8))
+    return hmr, smpl, rend
+
+
+def body_pass(hmr, smpl, rend, x: dict) -> dict:
+    """The body path once: HMR's theta and get_details, SMPL on the given
+    poses, then render_depth, extract_tex_from_image, render with lighting
+    and render_silhouettes(edge_gradients=True) with a backward to the
+    vertices and camera."""
+    from jafpro_tpu_torch.models.hmr import get_details
+
+    with torch.no_grad():
+        theta = hmr(x["hmr_imgs"])
+        details = get_details(smpl, theta)
+        verts = smpl(x["beta"], x["theta"])[0]
+        depth = rend.render_depth(x["cam"], verts)
+        tex = rend.extract_tex_from_image(x["imgs"], x["cam"], verts)
+        img = rend.render(x["cam"], verts, tex)
+    v = verts.clone().requires_grad_()
+    c = x["cam"].clone().requires_grad_()
+    sil = rend.render_silhouettes(c, v, edge_gradients=True)
+    (sil * x["weight"]).sum().backward()
+    return {"theta": theta, "details": details, "verts": verts,
+            "depth": depth, "tex": tex, "img": img, "sil": sil.detach(),
+            "g_verts": v.grad, "g_cam": c.grad}
+
+
+def check_body(out: dict, n: int, S: int, V: int) -> None:
+    """Shapes as the JAX package gives them (images NCHW in the port),
+    every value finite, depth 0 exactly off the body."""
+    want = {"theta": (n, 85), "cam": (n, 3), "pose": (n, 72),
+            "shape": (n, 10), "verts": (n, V, 3), "j2d": (n, 19, 2),
+            "j3d": (n, 19, 3)}
+    for k, shape in want.items():
+        t = out["details"][k]
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            raise AssertionError(f"get_details {k}: {tuple(t.shape)}")
+    for k, shape in (("verts", (n, V, 3)), ("depth", (n, S, S)),
+                     ("img", (n, 3, S, S)), ("sil", (n, S, S)),
+                     ("g_verts", (n, V, 3)), ("g_cam", (n, 3))):
+        t = out[k]
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            raise AssertionError(f"body {k}: {tuple(t.shape)} or not finite")
+    body = out["sil"] > 0
+    if not (0.02 < float(body.float().mean()) < 0.9):
+        raise AssertionError("the posed meshes do not cover the image")
+    if (out["depth"][~body] != 0).any() or (out["depth"][body] <= 0).any():
+        raise AssertionError("depth is not 0 exactly off the body")
+    if not out["g_verts"].abs().max() > 0:
+        raise AssertionError("the silhouettes' edge gradient is zero")
+
+
+def on_dev(x: dict, dev: str) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+
+
+def phase_body(seed: int, card: str) -> int:
+    """Phase 8: the body path at full width on the card, then a small
+    version against the CPU. Returns the rasterizer launches of one pass
+    of the path."""
+    from jafpro_tpu_torch.geometry import rasterizer as R
+    from jafpro_tpu_torch.models.hmr import HumanModelRecovery
+
+    t_phase = time.perf_counter()
+    n, S, V = 30, 256, 6890
+    torch.cuda.reset_peak_memory_stats()
+    hmr, smpl, rend = body_models(seed, "cuda", S)
+    x = on_dev(body_inputs(seed, n, S, 224), "cuda")
+    R.rasterize_fim_wim.launches = 0
+    out = body_pass(hmr, smpl, rend, x)
+    torch.cuda.synchronize()
+    launches = R.rasterize_fim_wim.launches
+    check_body(out, n, S, V)
+    log(f"[body] one pass (HMR, get_details, SMPL, render_depth, "
+        f"extract_tex_from_image, render, silhouettes + backward): "
+        f"rasterize_fim_wim launches {launches} [{card}]")
+    if launches != 3:
+        raise AssertionError("the body path did not rasterize once per "
+                             "render_depth, render and silhouettes")
+
+    # times, median of 3 after one warm-up
+    verts, tex = out["verts"], out["tex"]
+    hmr16 = HumanModelRecovery(compute_dtype=torch.bfloat16, device="cuda",
+                               generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        theta16 = hmr16(x["hmr_imgs"])
+    d16 = float((theta16 - out["theta"]).abs().max() /
+                out["theta"].abs().max())
+
+    def sil_backward():
+        v = verts.clone().requires_grad_()
+        c = x["cam"].clone().requires_grad_()
+        (rend.render_silhouettes(c, v, edge_gradients=True)
+         * x["weight"]).sum().backward()
+
+    steps = {}
+    with torch.no_grad():
+        steps["hmr float32"] = median_ms(lambda: hmr(x["hmr_imgs"]))
+        steps["hmr bfloat16"] = median_ms(lambda: hmr16(x["hmr_imgs"]))
+        steps["smpl"] = median_ms(lambda: smpl(x["beta"], x["theta"]))
+        steps["render_depth"] = median_ms(
+            lambda: rend.render_depth(x["cam"], verts))
+        steps["extract_tex_from_image"] = median_ms(
+            lambda: rend.extract_tex_from_image(x["imgs"], x["cam"], verts))
+        steps["render (lighting)"] = median_ms(
+            lambda: rend.render(x["cam"], verts, tex))
+    steps["silhouettes edge + backward"] = median_ms(sil_backward)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for k, (ms, times) in steps.items():
+        log(f"[body] {k}: {ms:.3f} ms per {n} (median of 3: "
+            f"{[round(t, 3) for t in times]}) [{card}]")
+    log(f"[body] HMR 224x224 blocks {hmr.resnet.num_blocks}, float32 TF32 "
+        f"off (cudnn={torch.backends.cudnn.allow_tf32} matmul="
+        f"{torch.backends.cuda.matmul.allow_tf32}); bfloat16 theta max rel "
+        f"{d16:.3e} from float32; SMPL V={V}; renderer {S}x{S} T=3 "
+        f"F={rend.faces.shape[0]}; peak memory {peak:.2f} GiB [{card}]")
+    del hmr, hmr16, out, tex
+
+    # card vs CPU at 64x64, 2 poses, float32, TF32 off, the same seeds
+    ns, Ss = 2, 64
+    xs = body_inputs(seed + 1, ns, Ss, Ss)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        hmr_d, smpl_d, rend_d = body_models(seed, dev, Ss)
+        xd = on_dev(xs, dev)
+        with torch.no_grad():
+            theta = hmr_d(xd["hmr_imgs"])
+            verts = smpl_d(xd["beta"], xd["theta"])[0]
+        # the renderer gets the CPU's vertices on both, so that its face
+        # ids are the same on both (the kernel equals its plain version)
+        v0 = res["cpu"]["verts"].to(dev) if dev == "cuda" else verts
+        tex = rend_d.extract_tex_from_image(xd["imgs"], xd["cam"], v0)
+        v = v0.clone().requires_grad_()
+        img = rend_d.render(xd["cam"], v, tex, edge_gradients=True)
+        (img * xd["imgs"]).sum().backward()
+        vs = v0.clone().requires_grad_()
+        (rend_d.render_silhouettes(xd["cam"], vs, edge_gradients=True)
+         * xd["weight"]).sum().backward()
+        res[dev] = {k: t.detach().cpu() for k, t in (
+            ("theta", theta), ("verts", verts), ("img", img),
+            ("g_render", v.grad), ("g_sil", vs.grad))}
+    a, b = res["cuda"], res["cpu"]
+    theta_rel = float((a["theta"] - b["theta"]).abs().max()
+                      / b["theta"].abs().max())
+    verts_abs = float((a["verts"] - b["verts"]).abs().max())
+    img_abs = float((a["img"] - b["img"]).abs().max())
+    for k in ("g_render", "g_sil"):
+        if not (torch.isfinite(b[k]).all() and b[k].norm() > 0):
+            raise AssertionError(f"the CPU's {k} is zero or not finite")
+    g_rel = {k: float((a[k] - b[k]).norm() / b[k].norm())
+             for k in ("g_render", "g_sil")}
+    log(f"[body] card vs CPU ({Ss}x{Ss}, {ns} poses, float32, TF32 off): "
+        f"HMR theta max rel {theta_rel:.3e} (tolerance 1e-4), SMPL verts "
+        f"max abs {verts_abs:.3e} (1e-5), rendered image max abs "
+        f"{img_abs:.3e} (1e-4), vertex gradient rel L2 render "
+        f"{g_rel['g_render']:.3e} silhouettes {g_rel['g_sil']:.3e} (1e-3) "
+        f"[{card}]")
+    if not (theta_rel <= 1e-4 and verts_abs <= 1e-5 and img_abs <= 1e-4
+            and all(v <= 1e-3 for v in g_rel.values())):
+        raise AssertionError("the body path on the card disagrees with the "
+                             "CPU")
+    log(f"[body] phase 8 took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -887,10 +1166,16 @@ def main(argv=None) -> int:
     # ---- phase 7: train ----
     train_launches = phase_train(args.seed, clip, engine, card)
 
+    # ---- phase 8: the body path ----
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    body_launches = phase_body(args.seed, card)
+
     kernels = [{
         "name": "rasterize_fim_wim", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "train_launches": train_launches, **k}]
+        "launches": launches, "train_launches": train_launches,
+        "body_launches": body_launches, **k}]
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,8 +14,12 @@ in, never by its rank:
 - ``nn.BatchNorm`` -> ``nn.BatchNorm2d``: params scale / bias -> weight /
   bias, ``batch_stats`` mean / var -> running_mean / running_var;
 - ``nn.Dense`` -> ``nn.Linear``: kernel (in, out) -> weight (out, in).
-Other leaves (norm affines) keep their names. ``flax_from_state_dict``
-undoes every rule, so what the port trains loads into the JAX package.
+Other leaves (norm affines, HMR's ``mean_theta``, LPIPS's heads
+``lin0..lin4``) keep their names. ``flax_from_state_dict`` undoes every
+rule, so what the port trains loads into the JAX package. The body
+modules load by the same rules: HMR (convs, its batch norms'
+``batch_stats``, ``mean_theta``, the dense layers), LPIPS (the VGG16
+stack and its heads) and ``VGG19Taps``, whose names are VGG19Features'.
 Takes and gives plain numpy arrays, so it imports no JAX.
 """
 

@@ -10,12 +10,16 @@
 // the per-face inverse matrix (clamped to [0, 1]), perspective-correct 1/z,
 // near/far reject, and a running (min depth, face id) with ties going to the
 // lowest id.  The winner's weights are then recomputed, renormalised, written
-// with the face id (-1 and zero weights for background), y-flipped.
+// with the face id (-1 and zero weights for background), y-flipped.  When
+// the caller passes a depth map, the winner's depth (its running `best`, the
+// perspective-correct zp) is written too, 0 at background: the XLA
+// rasterizer's return_depth contract (the Pallas kernel's depth_ref output).
 //
 // Bound: the bytes.  An exact z-buffer must read B*F triangles and write
 // B*S*S face ids and weights; the pairs it must test (pixel centres inside a
 // front face's bounding box) are few, about 1.2e6 on a 30-pose, 13776-face
-// 256x256 clip, so the bytes set the least time (0.0138 ms on an H100).  What
+// 256x256 clip, so the bytes set the least time (0.0138 ms on an H100; 0.0162
+// ms with the depth map, 4 more bytes per pixel).  What
 // costs time in practice is the pairs actually tested and the shared-memory
 // traffic and barriers spent to find them.
 //
@@ -165,7 +169,8 @@ raster_kernel(const float* __restrict__ faces,   // (B, NF, F_pad)
               int F_pad, int n_blocks, int S, float near, float far,
               int flip_y,
               int* __restrict__ fim,             // (B, S, S)
-              float* __restrict__ wim) {         // (B, S, S, 3)
+              float* __restrict__ wim,           // (B, S, S, 3)
+              float* __restrict__ dim) {         // (B, S, S) or null
   __shared__ float cull[2][NCULL][FACE_BLOCK];  // cp.async double buffer
   __shared__ float lst[NLIST][FACE_BLOCK];      // survivors, face-id order
   __shared__ int lst_id[FACE_BLOCK];
@@ -308,16 +313,17 @@ raster_kernel(const float* __restrict__ faces,   // (B, NF, F_pad)
   wim[o * 3 + 0] = w0;
   wim[o * 3 + 1] = w1;
   wim[o * 3 + 2] = w2;
+  if (dim != nullptr) dim[o] = (best_id >= 0) ? best : 0.0f;
 }
 
 extern "C" int jafpro_rasterize_fim_wim(const float* faces,
                                         const float* extent, int B,
                                         int F_pad, int n_blocks, int S,
                                         float near, float far, int flip_y,
-                                        int* fim, float* wim,
+                                        int* fim, float* wim, float* dim,
                                         cudaStream_t stream) {
   const dim3 grid((S + TILE - 1) / TILE, (S + TILE - 1) / TILE, B);
   raster_kernel<<<grid, FACE_BLOCK, 0, stream>>>(
-      faces, extent, F_pad, n_blocks, S, near, far, flip_y, fim, wim);
+      faces, extent, F_pad, n_blocks, S, near, far, flip_y, fim, wim, dim);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,16 @@ card.
 
 Contract (the Pallas kernel's, and ``rasterize_fim_wim(depth_mode="exact")``
 of the JAX package): (B, F, 3, 3) view-space triangles -> face-index map
-``fim`` (B, S, S) int32 with -1 for background and weight map ``wim``
-(B, S, S, 3), y-flipped with ``flip_y``; the nearest front face wins, ties
-go to the lowest face id.
+``fim`` (B, S, S) int32 with -1 for background, weight map ``wim``
+(B, S, S, 3) and, with ``return_depth``, depth map ``dim`` (B, S, S): the
+winner's perspective-correct depth, 0 at background; all y-flipped with
+``flip_y``. The nearest front face wins, ties go to the lowest face id.
+
+Gradients: the kernel has none. When the triangles require a gradient,
+``wim`` and ``dim`` carry the JAX package's (``rasterizer.py:536-549``):
+differentiable in the vertices for a fixed winner. Their forward values
+stay the kernel's; the backward recomputes them from the triangles for
+the kernel's ``fim`` (``winner_weights_depth``).
 
 Both versions start from the same per-face prep (``prepare_faces``) and
 evaluate every per-(pixel, face) expression in the Pallas kernel's order,
@@ -178,12 +185,13 @@ def _winner_weights(inv: torch.Tensor, idx: torch.Tensor, xi: torch.Tensor,
 
 def rasterize_prepared_reference(
     prep: PreparedFaces, image_size: int, near: float, far: float,
-    flip_y: bool = True,
+    flip_y: bool = True, return_depth: bool = False,
 ) -> tuple:
     """Plain PyTorch z-buffer over prepared faces: dense over every face,
     as many faces at a time as keep a (pixels x faces) temporary near 16M
     elements, per-(pixel, face) arithmetic as the Pallas kernel's.
-    Returns (fim (B,S,S) int32, wim (B,S,S,3))."""
+    Returns (fim (B,S,S) int32, wim (B,S,S,3)[, dim (B,S,S)]); ``dim`` is
+    the winner's depth (the running minimum), 0 at background."""
     S = image_size
     faces = prep.faces
     B, _, F_pad = faces.shape
@@ -201,7 +209,7 @@ def rasterize_prepared_reference(
     K = max(1, min(F_pad, (1 << 24) // P))
     far_t = torch.tensor(far, dtype=torch.float32, device=dev)
 
-    fims, wims = [], []
+    fims, wims, dims = [], [], []
     for b in range(B):
         rec = faces[b]  # (NF, F_pad)
         best = torch.full((P,), far, dtype=torch.float32, device=dev)
@@ -235,12 +243,13 @@ def rasterize_prepared_reference(
         w = _winner_weights(inv_all, best_id, xi, yi)
         fims.append(best_id.to(torch.int32).reshape(S, S))
         wims.append(w.reshape(S, S, 3))
-    fim = torch.stack(fims)
-    wim = torch.stack(wims)
+        dims.append(torch.where(best_id >= 0, best, 0.0).reshape(S, S))
+    out = [torch.stack(fims), torch.stack(wims)]
+    if return_depth:
+        out.append(torch.stack(dims))
     if flip_y:
-        fim = torch.flip(fim, dims=[1])
-        wim = torch.flip(wim, dims=[1])
-    return fim, wim
+        out = [torch.flip(t, dims=[1]) for t in out]
+    return tuple(out)
 
 
 def _check_face_verts(face_verts: torch.Tensor) -> None:
@@ -257,12 +266,13 @@ def _check_face_verts(face_verts: torch.Tensor) -> None:
 
 def rasterize_fim_wim_reference(
     face_verts: torch.Tensor, image_size: int = 256, near: float = 0.1,
-    far: float = 25.0, flip_y: bool = True,
+    far: float = 25.0, flip_y: bool = True, return_depth: bool = False,
 ) -> tuple:
     """Plain PyTorch version of ``rasterize_fim_wim`` on any device."""
     _check_face_verts(face_verts)
     prep = prepare_faces(face_verts, image_size)
-    return rasterize_prepared_reference(prep, image_size, near, far, flip_y)
+    return rasterize_prepared_reference(prep, image_size, near, far, flip_y,
+                                        return_depth)
 
 
 def _kernel_library():
@@ -272,15 +282,17 @@ def _kernel_library():
     fn = lib.jafpro_rasterize_fim_wim
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, ci, ci, ci, ci, cf, cf, ci, vp, vp, vp]
+        fn.argtypes = [vp, vp, ci, ci, ci, ci, cf, cf, ci, vp, vp, vp, vp]
         fn.restype = ci
     return fn
 
 
 def rasterize_prepared_cuda(prep: PreparedFaces, image_size: int,
-                            near: float, far: float,
-                            flip_y: bool = True) -> tuple:
-    """Launch the CUDA kernel on prepared faces (CUDA tensors only)."""
+                            near: float, far: float, flip_y: bool = True,
+                            return_depth: bool = False) -> tuple:
+    """Launch the CUDA kernel on prepared faces (CUDA tensors only).
+    Returns (fim, wim[, dim]); without ``return_depth`` the kernel gets a
+    null depth pointer and writes no depth."""
     faces, extent = prep.faces, prep.extent
     for name, t in (("faces", faces), ("extent", extent)):
         if t.device.type != "cuda" or t.dtype != torch.float32 or (
@@ -293,36 +305,113 @@ def rasterize_prepared_cuda(prep: PreparedFaces, image_size: int,
     S = image_size
     fim = torch.empty((B, S, S), dtype=torch.int32, device=faces.device)
     wim = torch.empty((B, S, S, 3), dtype=torch.float32, device=faces.device)
+    dim = (torch.empty((B, S, S), dtype=torch.float32, device=faces.device)
+           if return_depth else None)
     fn = _kernel_library()
     with torch.cuda.device(faces.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(faces.data_ptr(), extent.data_ptr(), B, F_pad,
                 F_pad // FACE_BLOCK, S, near, far, int(flip_y),
-                fim.data_ptr(), wim.data_ptr(), stream)
+                fim.data_ptr(), wim.data_ptr(),
+                None if dim is None else dim.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"rasterizer kernel launch failed: CUDA error {rc}")
     rasterize_fim_wim.launches += 1
-    return fim, wim
+    return (fim, wim) if dim is None else (fim, wim, dim)
+
+
+def winner_weights_depth(face_verts: torch.Tensor, fim: torch.Tensor,
+                         image_size: int, flip_y: bool = True) -> tuple:
+    """The winner's weights and depth recomputed from its triangle, in
+    differentiable PyTorch ops: (wim (B,S,S,3), dim (B,S,S)), zero at
+    background. ``fim`` is a rasterizer output in the same ``flip_y``
+    orientation. Weights as the kernel's epilogue (``prepare_faces``'
+    inverse matrix, clamp, renormalise); depth in the JAX package's exact
+    order, ``1 / (sum_k w_k / z_k)`` as ``(sum_k w_k * (1 / z_k)) / ws``
+    over the clamped weights (``rasterizer.py:160-167``, ``:533``)."""
+    S = image_size
+    B = fim.shape[0]
+    found = fim >= 0
+    bidx = torch.arange(B, device=fim.device).view(B, 1, 1)
+    fv = face_verts[bidx, fim.clamp(min=0).long()]          # (B,S,S,3,3)
+    p = 0.5 * (fv[..., :2] * S + S - 1)
+    p0x, p0y = p[..., 0, 0], p[..., 0, 1]
+    p1x, p1y = p[..., 1, 0], p[..., 1, 1]
+    p2x, p2y = p[..., 2, 0], p[..., 2, 1]
+    denom = (p2x * (p0y - p1y) + p0x * (p1y - p2y) + p1x * (p2y - p0y))
+    rows = torch.arange(S, device=fim.device, dtype=torch.float32)
+    yi = (S - 1 - rows if flip_y else rows)[:, None]
+    xi = rows[None, :]
+
+    def weight(a, b, c):
+        return torch.clamp((a / denom) * xi + (b / denom) * yi + c / denom,
+                           0.0, 1.0)
+
+    w0 = weight(p1y - p2y, p2x - p1x, p1x * p2y - p2x * p1y)
+    w1 = weight(p2y - p0y, p0x - p2x, p2x * p0y - p0x * p2y)
+    w2 = weight(p0y - p1y, p1x - p0x, p0x * p1y - p1x * p0y)
+    ws = w0 + w1 + w2
+    wim = torch.stack([w0 / ws, w1 / ws, w2 / ws], dim=-1)
+    iz = 1.0 / fv[..., 2]
+    q = (w0 * iz[..., 0] + w1 * iz[..., 1] + w2 * iz[..., 2]) / ws
+    dim = 1.0 / torch.clamp(q, min=1e-20)
+    zero = torch.zeros((), dtype=wim.dtype, device=wim.device)
+    return (torch.where(found[..., None], wim, zero),
+            torch.where(found, dim, zero))
+
+
+class _WinnerGrad(torch.autograd.Function):
+    """Forward: the rasterizer's own wim (and dim, when given). Backward: the
+    vector-Jacobian product of ``winner_weights_depth`` for the fixed
+    ``fim``, over the outputs that received a gradient."""
+
+    @staticmethod
+    def forward(ctx, face_verts, fim, image_size, flip_y, wim, dim):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(face_verts, fim)
+        ctx.image_size, ctx.flip_y = image_size, flip_y
+        return wim if dim is None else (wim, dim)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        face_verts, fim = ctx.saved_tensors
+        g_fv = None
+        with torch.enable_grad():
+            fv = face_verts.detach().requires_grad_()
+            outs = winner_weights_depth(fv, fim, ctx.image_size, ctx.flip_y)
+            pairs = [(t, g) for t, g in zip(outs, grads) if g is not None]
+            if pairs:
+                (g_fv,) = torch.autograd.grad([t for t, _ in pairs], fv,
+                                              [g for _, g in pairs])
+        return g_fv, None, None, None, None, None
 
 
 def rasterize_fim_wim(
     face_verts: torch.Tensor, image_size: int = 256, near: float = 0.1,
-    far: float = 25.0, flip_y: bool = True,
+    far: float = 25.0, flip_y: bool = True, return_depth: bool = False,
 ) -> tuple:
     """(B, F, 3, 3) float32 view-space triangles ->
-    (fim (B, S, S) int32, wim (B, S, S, 3) float32).
+    (fim (B, S, S) int32, wim (B, S, S, 3) float32[, dim (B, S, S)]).
 
     A CUDA tensor goes through the CUDA kernel (or raises); a CPU tensor
-    through ``rasterize_fim_wim_reference``. ``rasterize_fim_wim.launches``
-    counts kernel launches."""
+    through ``rasterize_prepared_reference``. ``rasterize_fim_wim.launches``
+    counts kernel launches. When ``face_verts`` requires a gradient (and
+    grad mode is on), ``wim`` and ``dim`` are differentiable in it for the
+    fixed face ids (``_WinnerGrad``); otherwise nothing is recomputed."""
     _check_face_verts(face_verts)
-    if face_verts.device.type == "cpu":
-        return rasterize_fim_wim_reference(face_verts, image_size, near, far,
-                                           flip_y)
-    if face_verts.device.type != "cuda":
+    if face_verts.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {face_verts.device}")
-    prep = prepare_faces(face_verts, image_size)
-    return rasterize_prepared_cuda(prep, image_size, near, far, flip_y)
+    with torch.no_grad():
+        prep = prepare_faces(face_verts, image_size)
+        run = (rasterize_prepared_reference
+               if face_verts.device.type == "cpu" else rasterize_prepared_cuda)
+        out = run(prep, image_size, near, far, flip_y, return_depth)
+    if not (face_verts.requires_grad and torch.is_grad_enabled()):
+        return out
+    fim, wim = out[:2]
+    dim = out[2] if return_depth else None
+    grad = _WinnerGrad.apply(face_verts, fim, image_size, flip_y, wim, dim)
+    return (fim, *grad) if return_depth else (fim, grad)
 
 
 rasterize_fim_wim.launches = 0

@@ -1,5 +1,6 @@
-"""The port's CUDA kernel against its plain PyTorch version, and a small
-training step against the CPU's, on the card.
+"""The port's CUDA kernel against its plain PyTorch version (with and
+without its depth output), the rasterizer's gradient recompute, a small
+training step and a renderer gradient against the CPU's, on the card.
 
 Marked ``cuda``: each test skips where there is no CUDA device (decided
 inside the test). Run on a GPU host with
@@ -137,3 +138,75 @@ def test_avg_pool_gradient_of_channels_last_input(cuda):
         (g,) = torch.autograd.grad((y * torch.tensor(r, device=dev)).sum(), xt)
         grads.append(g.cpu())
     assert (grads[0] - grads[1]).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("flip_y", [True, False])
+@pytest.mark.parametrize("scene,S,n_faces", [
+    ("random", 64, 1000), ("shuffled_sphere", 256, 13776),
+    ("slivers", 256, 768)])
+def test_kernel_depth_matches_plain(cuda, scene, S, n_faces, flip_y):
+    """The kernel's depth output: face ids and weights as without it, depth
+    within 1e-6 relative of the plain version's (the same arithmetic), 0 at
+    background."""
+    fv = torch.from_numpy(SCENES[scene](S, n_faces)).to(cuda)
+    before = trast.rasterize_fim_wim.launches
+    fim, wim, dim = trast.rasterize_fim_wim(fv, S, flip_y=flip_y,
+                                            return_depth=True)
+    f2, w2 = trast.rasterize_fim_wim(fv, S, flip_y=flip_y)
+    torch.cuda.synchronize()
+    assert trast.rasterize_fim_wim.launches == before + 2
+    assert torch.equal(fim, f2) and torch.equal(wim, w2)
+    rfim, rwim, rdim = trast.rasterize_fim_wim_reference(
+        fv, S, flip_y=flip_y, return_depth=True)
+    assert torch.equal(fim, rfim)
+    found = rfim >= 0
+    assert (dim[~found] == 0).all()
+    rel = (dim - rdim).abs() / rdim.abs().clamp(min=1e-30)
+    assert rel[found].max().item() <= 1e-6
+
+
+def test_gradient_recompute_matches_kernel(cuda):
+    """With a gradient the forward values stay the kernel's; the weights
+    and depth the backward recomputes (``winner_weights_depth``) agree with
+    them (weights 1e-5, depth 1e-6 relative)."""
+    fv = torch.from_numpy(shuffled_sphere()).to(cuda)
+    fim, wim, dim = trast.rasterize_fim_wim(fv, 256, return_depth=True)
+    t = fv.clone().requires_grad_()
+    gfim, gwim, gdim = trast.rasterize_fim_wim(t, 256, return_depth=True)
+    assert torch.equal(gfim, fim) and torch.equal(gwim, wim) and torch.equal(
+        gdim, dim)
+    w2, d2 = trast.winner_weights_depth(fv, fim, 256)
+    found = fim >= 0
+    assert (w2 - wim).abs().max().item() <= 1e-5
+    rel = (d2 - dim).abs() / dim.abs().clamp(min=1e-30)
+    assert rel[found].max().item() <= 1e-6
+    (gwim.sum() + gdim.sum()).backward()
+    assert torch.isfinite(t.grad).all() and t.grad.abs().max() > 0
+
+
+def test_renderer_gradient_card_vs_cpu(cuda):
+    """``render(edge_gradients=True)`` and its vertex gradient on the card
+    against the CPU, on a jittered quad mesh at 64x64 (float32): images
+    within 1e-4, the gradient within 1e-3 relative L2."""
+    from jafpro_tpu_torch.geometry.renderer import SMPLRenderer
+    from jafpro_tpu_torch.train.common import synthetic_quad_mesh
+
+    verts, faces = synthetic_quad_mesh(12)
+    rng = np.random.RandomState(0)
+    verts = (np.stack([verts, verts]) + 0.02 * rng.randn(2, *verts.shape)
+             ).astype(np.float32)
+    cam = np.float32([[1.0, 0.0, 0.0], [0.9, 0.05, -0.04]])
+    tex = rng.uniform(0, 1, (2, len(faces), 3, 3, 3, 3)).astype(np.float32)
+    weight = rng.randn(2, 3, 64, 64).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        r = SMPLRenderer(faces=faces, image_size=64, device=dev,
+                         light_intensity_directional=0.5)
+        v = torch.tensor(verts, device=dev, requires_grad=True)
+        img = r.render(torch.tensor(cam, device=dev), v,
+                       torch.tensor(tex, device=dev), edge_gradients=True)
+        (img * torch.tensor(weight, device=dev)).sum().backward()
+        out[str(dev)] = (img.detach().cpu(), v.grad.cpu())
+    (ia, ga), (ib, gb) = out["cpu"], out[str(cuda)]
+    assert (ia - ib).abs().max().item() <= 1e-4
+    assert ((ga - gb).norm() / ga.norm()).item() <= 1e-3
