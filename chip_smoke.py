@@ -7,7 +7,9 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. Environment: torch/CUDA versions, ``nvcc --version``, the card's name
    and power limit; needs one Hopper card (compute capability 9.0).
-2. Build: compile ``jafpro_tpu_torch/csrc/rasterizer.cu`` with nvcc.
+2. Build: compile every native source of ``jafpro_tpu_torch/csrc/`` at
+   once, one compiler process each: ``rasterizer.cu`` and
+   ``correlation.cu`` with nvcc, the shard reader ``shardio.cc`` with g++.
 3. Kernel vs plain version on the card: random scenes (back faces, faces
    crossing near and far, coplanar z-fighting pairs, degenerate faces, a
    face count that is not a multiple of 256), the full 30-frame,
@@ -80,14 +82,33 @@ Phases, each of which raises on failure (nothing is caught):
    on the card and on the CPU: HMR theta within 1e-4 relative, SMPL
    vertices 1e-5, rendered images 1e-4, vertex gradients 1e-3 relative L2.
 
+9. The flow path: the correlation kernels (``csrc/correlation.cu``,
+   forward and backward) against the plain version on FlowNetC's
+   training shape (8, 256, 32, 32), a 384x1024 Sintel crop's (2, 256, 48,
+   128), an odd (1, 256, 13, 29), all at md 20, s2 2, and (2, 256, 32, 32)
+   at md 4, s2 1, in float32 (forward 1e-5 absolute, gradients 1e-5
+   relative L2) and bfloat16 (within twice the plain bfloat16 form's own
+   error against float32); their median ms and the plain form's beside
+   the bound. Then the harness (``make_flow_train_step``) trains FlowNetC
+   and FlowNetSD at batch 8 on 256² synthetic batches in float32 (TF32
+   off) and bfloat16, 1 warm-up and 3 timed steps each: finite loss and
+   EPE, parameters that move, s/step, samples/s, peak memory and the
+   correlation launches of each step (FlowNetC: 1 forward, 1 backward;
+   FlowNetSD: none). FlowNet2 (float32) then runs the 29 pairs of a
+   seeded 30-frame 256² clip in one batch (ms per clip, 1 launch). Last,
+   FlowNetC at 64² on the card and on the CPU: the forward within 1e-4
+   relative and one SGD harness step within 1e-5 on loss and EPE and 5e-3
+   on each module's update (at batch 4, see ``FLOW_REF_BATCH``).
+
 Phase 3 also runs the kernel with its depth output on every scene (depth
 within 1e-6 relative of the plain version's, 0 at background; whether it
 is bitwise is printed), checks the gradient's recompute of weights and
 depth (``winner_weights_depth``) against the kernel's, and times the
 kernel with and without the depth output in turns.
 
-Prints the kernels' JSON line, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``.
+Prints the kernels' JSON line (the rasterizer, the correlation and its
+backward), the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -111,6 +132,10 @@ PEAK_BYTES_PER_S = 3.35e12
 OPS_PER_PAIR = 40  # fp32 operations per (pixel, face) test in the kernel
 KERNEL_SOURCE = "jafpro_tpu_torch/csrc/rasterizer.cu"
 KERNEL_REPLACES = "jafpro_tpu/geometry/rasterizer_pallas.py:123"
+CORR_SOURCE = "jafpro_tpu_torch/csrc/correlation.cu"
+CORR_REPLACES = "jafpro_tpu/ops/correlation.py:19"
+# every source under csrc/, built together in phase 2
+NATIVE_SOURCES = ("rasterizer.cu", "correlation.cu", "shardio.cc")
 # PyTorch's own TF32 settings, those the CLI runs under
 TF32_DEFAULTS = (torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32)
@@ -151,13 +176,22 @@ def phase_environment() -> str:
 
 
 def phase_build() -> float:
+    """Build every native source at once, one compiler process each;
+    returns the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from jafpro_tpu_torch import cuda_build
 
-    path, secs, out = cuda_build.build("rasterizer.cu")
-    for line in out.strip().splitlines():
-        log(f"[build] {line}")
-    log(f"[build] {path} in {secs:.2f} s")
-    cuda_build.load("rasterizer.cu")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(NATIVE_SOURCES)) as pool:
+        built = list(pool.map(cuda_build.build, NATIVE_SOURCES))
+    secs = time.perf_counter() - t0
+    for source, (path, s, out) in zip(NATIVE_SOURCES, built):
+        for line in out.strip().splitlines():
+            log(f"[build] {source}: {line}")
+        log(f"[build] {path} in {s:.2f} s")
+        cuda_build.load(source)
+    log(f"[build] {len(NATIVE_SOURCES)} sources in parallel: {secs:.2f} s")
     return secs
 
 
@@ -1097,6 +1131,388 @@ def phase_body(seed: int, card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+
+# the correlation kernel's scenes: (name, (B, C, H, W), md, s2)
+CORR_SCENES = (
+    ("flownetc_256", (8, 256, 32, 32), 20, 2),   # FlowNetC at 256² crops
+    ("sintel_384x1024", (2, 256, 48, 128), 20, 2),
+    ("odd", (1, 256, 13, 29), 20, 2),
+    ("md4_s1", (2, 256, 32, 32), 4, 1),
+)
+CORR_FWD_ATOL = 1e-5      # float32 forward, unit-normal inputs
+CORR_BWD_RTOL = 1e-5      # float32 backward, relative L2 per gradient
+FLOW_BATCH, FLOW_SIZE = 8, 256   # the reference harness's defaults
+# FlowNetC card vs CPU (64², batch FLOW_REF_BATCH, float32, TF32 off): the
+# forward within FLOW_FWD_RTOL of the largest output; one SGD harness step
+# within FLOW_METRIC_RTOL on loss and EPE and FLOW_UPDATE_RTOL on each
+# module's update (relative L2), PR 8's convention. Batch 4: at 64² conv6
+# is 1x1, and at batch 2 its training-mode batch norm normalises 2 values
+# per channel, whose gradient (1 - x̂²)/σ is a difference of nearly equal
+# numbers; measured on an H100, the step's updates then differ from the
+# CPU's by 0.81 (conv2a), while the same step with batch norm on running
+# statistics agrees within 6.5e-4, and at batch 4 within 2.2e-3.
+FLOW_FWD_RTOL = 1e-4
+FLOW_METRIC_RTOL = 1e-5
+FLOW_UPDATE_RTOL = 5e-3
+FLOW_REF_BATCH = 4
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def corr_bound_ms(shape, md: int, s2: int, itemsize: int,
+                  backward: bool) -> tuple:
+    """(least ms, "bytes" or "operations") of the forward or the backward
+    on the card: float32 multiply-adds on the CUDA cores against each
+    input read once and each output written once."""
+    from jafpro_tpu_torch.ops.correlation import window
+
+    B, C, H, W = shape
+    D = window(md, s2) ** 2
+    ops = 2 * B * C * H * W * D * (2 if backward else 1)
+    feat, vol = B * C * H * W, B * D * H * W
+    nbytes = itemsize * ((vol + 2 * feat + 2 * feat) if backward
+                         else (2 * feat + vol))
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def median_cuda_ms(fn, reps: int = 5, iters: int = 3) -> float:
+    return statistics.median(cuda_time_ms(fn, iters) for _ in range(reps))
+
+
+def check_corr_scene(name: str, shape, md: int, s2: int, gen) -> dict:
+    """Forward and backward kernels against the plain version on one
+    scene, float32 and bfloat16; raises on a mismatch."""
+    from jafpro_tpu_torch.ops import correlation as OC
+
+    dev = torch.device("cuda")
+    f1 = torch.randn(shape, generator=gen).to(dev)
+    f2 = torch.randn(shape, generator=gen).to(dev)
+    out = {}
+    ref = OC.correlation_reference(f1, f2, md, s2)
+    g = torch.randn(ref.shape, generator=gen).to(dev)
+    a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    ref_g = torch.autograd.grad(OC.correlation_reference(a, b, md, s2),
+                                (a, b), g)
+    for dt in (torch.float32, torch.bfloat16):
+        x1, x2 = f1.to(dt), f2.to(dt)
+        ker = OC.correlation_cuda(x1, x2, md, s2)
+        k1, k2 = OC.correlation_backward_cuda(g.to(dt), x1, x2, md, s2)
+        # through the autograd Function, as the nets call it
+        a, b = x1.clone().requires_grad_(), x2.clone().requires_grad_()
+        fn_g = torch.autograd.grad(OC.correlation(a, b, md, s2), (a, b),
+                                   g.to(dt))
+        torch.cuda.synchronize()
+        if not (torch.equal(fn_g[0], k1) and torch.equal(fn_g[1], k2)):
+            raise AssertionError(f"{name}: the autograd Function's gradient "
+                                 "is not the backward kernel's")
+        if dt == torch.float32:
+            fwd = float((ker - ref).abs().max())
+            bwd = max(rel_l2(k1, ref_g[0]), rel_l2(k2, ref_g[1]))
+            bwd_abs = max(float((k1 - ref_g[0]).abs().max()),
+                          float((k2 - ref_g[1]).abs().max()))
+            log(f"[corr] {name} {tuple(shape)} md {md} s2 {s2} float32: "
+                f"forward max abs {fwd:.3e} (tolerance {CORR_FWD_ATOL}), "
+                f"backward rel L2 {bwd:.3e} (tolerance {CORR_BWD_RTOL}), "
+                f"max abs {bwd_abs:.3e}")
+            if not (fwd <= CORR_FWD_ATOL and bwd <= CORR_BWD_RTOL):
+                raise AssertionError(f"{name}: the float32 kernels disagree "
+                                     "with the plain version")
+            out["max_abs_err"], out["bwd_max_abs_err"] = fwd, bwd_abs
+            continue
+        # bfloat16: against float32 on the same rounded inputs, the kernel
+        # within twice the plain bf16 form's own error
+        r32 = OC.correlation_reference(x1.float(), x2.float(), md, s2)
+        a, b = x1.float().requires_grad_(), x2.float().requires_grad_()
+        r32_g = torch.autograd.grad(OC.correlation_reference(a, b, md, s2),
+                                    (a, b), g.to(dt).float())
+        a, b = x1.clone().requires_grad_(), x2.clone().requires_grad_()
+        plain = OC.correlation_reference(a, b, md, s2)
+        p_g = torch.autograd.grad(plain, (a, b), g.to(dt))
+        fk = float((ker.float() - r32).abs().max())
+        fp = float((plain.detach().float() - r32).abs().max())
+        bk = max(rel_l2(k1.float(), r32_g[0]), rel_l2(k2.float(), r32_g[1]))
+        bp = max(rel_l2(p_g[0].float(), r32_g[0]),
+                 rel_l2(p_g[1].float(), r32_g[1]))
+        log(f"[corr] {name} bfloat16 vs float32: forward kernel {fk:.3e}, "
+            f"plain {fp:.3e}; backward rel L2 kernel {bk:.3e}, plain "
+            f"{bp:.3e} (tolerance: twice the plain form's)")
+        if not (fk <= 2 * fp and bk <= 2 * bp):
+            raise AssertionError(f"{name}: the bfloat16 kernels are further "
+                                 "from float32 than twice the plain form")
+        out["bf16_err"] = fk
+    return out
+
+
+def time_corr(shape, md: int, s2: int, gen, card: str) -> dict:
+    """Median ms of the kernels and the plain form at ``shape`` (float32),
+    forward and forward + backward, beside the bound; and what a
+    channels-last copy of both inputs would cost."""
+    from jafpro_tpu_torch.ops import correlation as OC
+
+    dev = torch.device("cuda")
+    f1 = torch.randn(shape, generator=gen).to(dev)
+    f2 = torch.randn(shape, generator=gen).to(dev)
+    g = OC.correlation_cuda(f1, f2, md, s2).normal_()
+    a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    graph = OC.correlation_reference(a, b, md, s2)
+
+    def plain_fb():
+        torch.autograd.grad(OC.correlation_reference(a, b, md, s2), (a, b),
+                            g)
+
+    t = {
+        "ms": median_cuda_ms(lambda: OC.correlation_cuda(f1, f2, md, s2)),
+        "bwd_ms": median_cuda_ms(
+            lambda: OC.correlation_backward_cuda(g, f1, f2, md, s2)),
+        "plain_ms": median_cuda_ms(
+            lambda: OC.correlation_reference(f1, f2, md, s2), 3, 1),
+        "plain_fb_ms": median_cuda_ms(plain_fb, 3, 1),
+        "plain_bwd_ms": median_cuda_ms(lambda: torch.autograd.grad(
+            graph, (a, b), g, retain_graph=True), 3, 1),
+        "copy_ms": median_cuda_ms(lambda: (
+            f1.contiguous(memory_format=torch.channels_last),
+            f2.contiguous(memory_format=torch.channels_last))),
+    }
+    t["fb_ms"] = t["ms"] + t["bwd_ms"]
+    t["bound_ms"], t["bound_by"] = corr_bound_ms(shape, md, s2, 4, False)
+    t["bwd_bound_ms"], t["bwd_bound_by"] = corr_bound_ms(shape, md, s2, 4,
+                                                         True)
+    log(f"[corr] {tuple(shape)} md {md} s2 {s2} float32, median ms: "
+        f"forward kernel {t['ms']:.4f}, plain {t['plain_ms']:.3f}, bound "
+        f"{t['bound_ms']:.4f} ({t['bound_by']}); forward+backward kernel "
+        f"{t['fb_ms']:.4f}, plain {t['plain_fb_ms']:.3f}; backward kernel "
+        f"{t['bwd_ms']:.4f}, plain {t['plain_bwd_ms']:.3f}, bound "
+        f"{t['bwd_bound_ms']:.4f} "
+        f"({t['bwd_bound_by']}); a channels-last copy of f1 and f2 (not "
+        f"made: the kernel reads NCHW) {t['copy_ms']:.4f} [{card}]")
+    return t
+
+
+def flow_train(model: str, dtype: str, batches, seed: int, card: str
+               ) -> dict:
+    """1 warm-up and 3 timed harness steps at FLOW_BATCH x FLOW_SIZE²;
+    checks finite loss and EPE, parameters that moved, and the
+    correlation launches of each step."""
+    from jafpro_tpu_torch.ops.correlation import correlation
+    from jafpro_tpu_torch.train.flow_harness import make_flow_train_step
+
+    init_fn, step_fn = make_flow_train_step(model, lr=1e-4,
+                                            compute_dtype=dtype)
+    state = init_fn(torch.Generator().manual_seed(seed))
+    before = [p.detach().clone() for p in state.model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics, launches = [], [], []
+    for i, (pairs, flow) in enumerate(batches):
+        correlation.launches = correlation.backward_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, pairs, flow)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+        launches.append((correlation.launches,
+                         correlation.backward_launches))
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = sum(not torch.equal(p0, p.detach())
+                for p0, p in zip(before, state.model.parameters()))
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"flow {model} {dtype}: a loss is not finite")
+    if moved < len(before) // 2:
+        raise AssertionError(f"flow {model} {dtype}: only {moved} of "
+                             f"{len(before)} parameters moved")
+    want = (1, 1) if model == "c" else (0, 0)
+    if any(la != want for la in launches):
+        raise AssertionError(f"flow {model} {dtype}: correlation launches "
+                             f"per step {launches}, expected {want}")
+    s_step = statistics.median(times)
+    log(f"[flow] train {model} {dtype} batch {FLOW_BATCH} {FLOW_SIZE}²: "
+        f"{s_step:.4f} s/step (median of {len(times)}: "
+        + ", ".join(f"{t:.4f}" for t in times)
+        + f"), {FLOW_BATCH / s_step:.2f} samples/s, peak {peak:.2f} GiB; "
+        f"loss {metrics[0]['loss']:.4f} -> {metrics[-1]['loss']:.4f}, epe "
+        f"{metrics[-1]['epe']:.4f}; correlation launches per step "
+        f"(forward, backward) {launches[-1]}; {moved}/{len(before)} "
+        f"parameters moved [{card}]")
+    return {"s_step": s_step, "peak": peak, "launches": launches}
+
+
+def flow_clip(seed: int, T: int = 30, S: int = 256) -> np.ndarray:
+    """A seeded (T, 3, S, S) clip in [0, 255]: smooth noise moved by a
+    smooth flow that grows frame by frame."""
+    from jafpro_tpu_torch.ops.sampling import resample2d
+    from jafpro_tpu_torch.train.flow_harness import resize_linear_nhwc
+
+    rng = np.random.RandomState(seed)
+    base = resize_linear_nhwc(rng.rand(1, S // 8, S // 8, 3).astype(
+        np.float32), (S, S))
+    flow = resize_linear_nhwc(rng.randn(1, 4, 4, 2).astype(np.float32),
+                              (S, S)) * 0.5
+    img = torch.from_numpy(base).permute(0, 3, 1, 2).repeat(T, 1, 1, 1)
+    fl = torch.from_numpy(flow).permute(0, 3, 1, 2) * torch.arange(
+        T, dtype=torch.float32).view(T, 1, 1, 1)
+    with torch.no_grad():
+        return (255.0 * resample2d(img, fl)).numpy()
+
+
+def flownet2_clip(seed: int, card: str) -> dict:
+    """FlowNet2 (eval, float32) on the 29 consecutive pairs of one seeded
+    30-frame 256² clip in one batch: ms per clip and launches."""
+    from jafpro_tpu_torch.models.common import init_params_
+    from jafpro_tpu_torch.models.flownet import FlowNet2, flownet2_preprocess
+    from jafpro_tpu_torch.ops.correlation import correlation
+
+    dev = torch.device("cuda")
+    clip = torch.from_numpy(flow_clip(seed)).to(dev)
+    frames = torch.stack([clip[:-1], clip[1:]], 2)      # (29, 3, 2, S, S)
+    net = init_params_(FlowNet2(), torch.Generator().manual_seed(seed))
+    net = net.to(dev).eval()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        x = flownet2_preprocess(frames)
+        correlation.launches = 0
+        out = net(x)
+        torch.cuda.synchronize()
+        launches = correlation.launches
+        ms, times = median_ms(lambda: net(flownet2_preprocess(frames)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if out.shape != (29, 2, 256, 256) or not bool(out.isfinite().all()):
+        raise AssertionError(f"FlowNet2 output {tuple(out.shape)} is wrong "
+                             "or not finite")
+    if launches != 1:
+        raise AssertionError(f"FlowNet2 launched the correlation "
+                             f"{launches} times on one clip")
+    log(f"[flow] FlowNet2 float32, 29 pairs of a 30-frame 256² clip: "
+        f"{ms:.2f} ms per clip (median of 3: "
+        + ", ".join(f"{t:.2f}" for t in times)
+        + f"), {29e3 / ms:.1f} pairs/s, peak {peak:.2f} GiB, correlation "
+        f"launches per clip {launches} [{card}]")
+    return {"ms": ms, "launches": launches}
+
+
+def flow_sgd_step_on(dev: str, seed: int, batch: int) -> tuple:
+    """One SGD (lr 1e-3) harness step of FlowNetC at 64², float32, from
+    seeded weights and batch norm statistics: (before, after (flax
+    trees), metrics)."""
+    from jafpro_tpu_torch.bridge import flax_from_state_dict
+    from jafpro_tpu_torch.train.flow_harness import (
+        make_flow_train_step, synthetic_flow_batch)
+
+    pairs, flow = synthetic_flow_batch(np.random.RandomState(seed),
+                                       batch=batch, size=64)
+    init_fn, step_fn = make_flow_train_step("c", lr=1e-3, device=dev)
+    state = init_fn(torch.Generator().manual_seed(seed))
+    state.opt = torch.optim.SGD(state.model.parameters(), 1e-3)
+    before = flax_from_state_dict(state.model)
+    state, m = step_fn(state, pairs, flow)
+    return before, flax_from_state_dict(state.model), {
+        k: float(v) for k, v in m.items()}
+
+
+def flow_reference(seed: int) -> None:
+    """Card against CPU at 64²: FlowNetC's eval forward, and one SGD
+    harness step (loss, EPE, each module's update)."""
+    from jafpro_tpu_torch.checkpoints import flatten
+    from jafpro_tpu_torch.models.common import init_params_
+    from jafpro_tpu_torch.models.flownet import FlowNetC
+
+    net = init_params_(FlowNetC(), torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    for m in net.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.uniform_(-0.5, 0.5, generator=gen)
+            m.running_var.uniform_(0.5, 1.5, generator=gen)
+    net.eval()
+    x = torch.rand((FLOW_REF_BATCH, 6, 64, 64), generator=gen)
+    with torch.no_grad():
+        want = net(x[:, :3], x[:, 3:])
+        got = net.cuda()(x[:, :3].cuda(), x[:, 3:].cuda()).cpu()
+    fwd = float((got - want).abs().max() / want.abs().max())
+    b_gpu, a_gpu, m_gpu = flow_sgd_step_on("cuda", seed, FLOW_REF_BATCH)
+    b_cpu, a_cpu, m_cpu = flow_sgd_step_on("cpu", seed, FLOW_REF_BATCH)
+    worst_m = max(abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    b0, ag, ac = (flatten(t["params"]) for t in (b_cpu, a_gpu, a_cpu))
+    err: dict = {}
+    for name, p0 in b0.items():
+        e = err.setdefault(name.split("/")[0], [0.0, 0.0])
+        du, dc = ag[name] - p0, ac[name] - p0
+        e[0] += float(np.square(du - dc, dtype=np.float64).sum())
+        e[1] += float(np.square(dc, dtype=np.float64).sum())
+    rel = {k: (d / n) ** 0.5 for k, (d, n) in err.items() if n > 0}
+    worst = max(rel, key=rel.get)
+    log(f"[flow] card vs CPU, FlowNetC 64², batch {FLOW_REF_BATCH}, float32, "
+        f"TF32 off: forward max rel {fwd:.3e} (tolerance {FLOW_FWD_RTOL}); "
+        f"one SGD step: metrics max rel {worst_m:.3e} (tolerance "
+        f"{FLOW_METRIC_RTOL}), update rel L2 per module max {rel[worst]:.3e} "
+        f"({worst}; tolerance {FLOW_UPDATE_RTOL}), median "
+        f"{statistics.median(rel.values()):.3e} over {len(rel)} modules")
+    if not (fwd <= FLOW_FWD_RTOL and worst_m <= FLOW_METRIC_RTOL
+            and rel[worst] <= FLOW_UPDATE_RTOL):
+        raise AssertionError("the card's FlowNetC disagrees with the CPU's")
+
+
+def phase_flow(seed: int, card: str) -> list:
+    """Phase 9. Returns the correlation kernels' JSON records."""
+    from jafpro_tpu_torch.ops.correlation import correlation
+    from jafpro_tpu_torch.train.flow_harness import synthetic_flow_batch
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed + 90)
+    errs = {name: check_corr_scene(name, shape, md, s2, gen)
+            for name, shape, md, s2 in CORR_SCENES}
+    _, shape, md, s2 = CORR_SCENES[0]
+    t = time_corr(shape, md, s2, gen, card)
+
+    # the main path: the harness trains FlowNetC (and FlowNetSD), then
+    # FlowNet2 runs a clip; the counts are reset just before each run
+    rng = np.random.RandomState(seed + 91)
+    batches = [synthetic_flow_batch(rng, FLOW_BATCH, FLOW_SIZE)
+               for _ in range(4)]
+    train = {(m, d): flow_train(m, d, batches, seed, card)
+             for m in ("c", "sd") for d in ("float32", "bfloat16")}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    clip = flownet2_clip(seed, card)
+    flow_reference(seed)
+    fwd = sum(la[0] for k, v in train.items() if k[0] == "c"
+              for la in v["launches"]) + clip["launches"]
+    bwd = sum(la[1] for k, v in train.items() if k[0] == "c"
+              for la in v["launches"])
+    if fwd < 1 or bwd < 1:
+        raise AssertionError("the flow path never launched the correlation "
+                             "kernels")
+    log(f"[flow] phase 9 took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    worst = max(e["max_abs_err"] for e in errs.values())
+    worst_b = max(e["bwd_max_abs_err"] for e in errs.values())
+    return [
+        {"name": "correlation", "route": "cuda", "source": CORR_SOURCE,
+         "replaces": CORR_REPLACES, "launches": fwd,
+         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+         "library_ms": None, "fwd_bwd_ms": t["fb_ms"],
+         "plain_fwd_bwd_ms": t["plain_fb_ms"],
+         "channels_last_copy_ms": t["copy_ms"],
+         "s_step_c_float32": train[("c", "float32")]["s_step"],
+         "s_step_c_bfloat16": train[("c", "bfloat16")]["s_step"],
+         "flownet2_clip_ms": clip["ms"]},
+        {"name": "correlation_backward", "route": "cuda",
+         "source": CORR_SOURCE, "replaces": CORR_REPLACES + " (its VJP)",
+         "launches": bwd, "max_abs_err": worst_b,
+         "ms": t["bwd_ms"], "plain_ms": t["plain_bwd_ms"],
+         "bound_ms": t["bwd_bound_ms"], "bound_by": t["bwd_bound_by"],
+         "library_ms": None},
+    ]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1171,11 +1587,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     body_launches = phase_body(args.seed, card)
 
+    # ---- phase 9: the flow path ----
+    flow_kernels = phase_flow(args.seed, card)
+
     kernels = [{
         "name": "rasterize_fim_wim", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches, "train_launches": train_launches,
-        "body_launches": body_launches, **k}]
+        "body_launches": body_launches, **k}] + flow_kernels
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

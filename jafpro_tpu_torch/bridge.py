@@ -20,6 +20,11 @@ rule, so what the port trains loads into the JAX package. The body
 modules load by the same rules: HMR (convs, its batch norms'
 ``batch_stats``, ``mean_theta``, the dense layers), LPIPS (the VGG16
 stack and its heads) and ``VGG19Taps``, whose names are VGG19Features'.
+So does the FlowNet family: FlowNet2 nests its five nets by path
+(``flownetc``, ``flownets_1``, ``flownets_2``, ``flownets_d``,
+``flownetfusion``), FlowNetS's bias-free ``up_flow*`` transposed convs
+have no bias leaf, and its batch norms' ``batch_stats`` follow the
+batch-norm rule.
 Takes and gives plain numpy arrays, so it imports no JAX.
 """
 
@@ -87,12 +92,14 @@ def _invert(mod: nn.Module, name: str, a: np.ndarray):
     raise TypeError(f"no weight rule for {type(mod).__name__}")
 
 
-def flax_from_state_dict(module: nn.Module) -> Dict[str, Any]:
-    """``module``'s parameters and buffers as flax variables
-    (``{"params": ..., "batch_stats": ...}``, the latter only where the
-    module has batch norms), float32 numpy leaves."""
+def flax_tree(module: nn.Module,
+              named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Tensors named as ``module``'s ``state_dict`` names them (all of it,
+    or any part, such as optimizer moments keyed by parameter name) as
+    flax variables (``{"params": ..., "batch_stats": ...}``), float32
+    numpy leaves."""
     out: Dict[str, Any] = {}
-    for key, t in module.state_dict().items():
+    for key, t in named.items():
         *path, name = key.split(".")
         mod = module.get_submodule(".".join(path))
         got = _invert(mod, name, t.detach().float().cpu().numpy())
@@ -104,6 +111,13 @@ def flax_from_state_dict(module: nn.Module) -> Dict[str, Any]:
             node = node.setdefault(k, {})
         node[leaf] = np.array(a, dtype=np.float32, order="C")
     return out
+
+
+def flax_from_state_dict(module: nn.Module) -> Dict[str, Any]:
+    """``module``'s parameters and buffers as flax variables
+    (``{"params": ..., "batch_stats": ...}``, the latter only where the
+    module has batch norms), float32 numpy leaves."""
+    return flax_tree(module, module.state_dict())
 
 
 def state_dict_from_flax(variables: Dict[str, Any],

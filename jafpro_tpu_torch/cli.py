@@ -6,10 +6,10 @@ loads, and saves ``.npz`` checkpoints that ``infer`` serves; ``infer -e
 <exp> -n <num_refs>`` serves the test clips (decoded from the dataset or
 read from a pack) and writes their frames; ``evaluate --pred <dir> --gt
 <dir>`` scores them; ``gif`` stacks frames into GIFs; ``pack --kind
-clips`` packs serving clips. The commands mirror ``jafpro_tpu/cli.py``'s;
-``train``, ``infer`` and ``evaluate`` run on ``--device``, ``cuda`` unless
-asked otherwise. Frames are read and written with ``cv2``, imported where
-it is used.
+interval|textonly|clips`` packs training records or serving clips. The
+commands mirror ``jafpro_tpu/cli.py``'s; ``train``, ``infer`` and
+``evaluate`` run on ``--device``, ``cuda`` unless asked otherwise. Frames
+are read and written with ``cv2``, imported where it is used.
 """
 
 from __future__ import annotations
@@ -645,12 +645,19 @@ def cmd_gif(args) -> None:
 
 
 def cmd_pack(args) -> None:
-    from jafpro_tpu_torch.data.shardio import pack_test_clips
+    from jafpro_tpu_torch.data.shardio import pack_dancevideo, pack_test_clips
 
     cfg = get_general_options()
-    n = pack_test_clips(cfg.data_root, cfg.smpl_root, cfg.mask_root,
-                        args.out, mode=args.mode, num_refs=args.num_refs)
-    print(f"packed {n} clips into {args.out}")
+    if args.kind == "clips":
+        n = pack_test_clips(cfg.data_root, cfg.smpl_root, cfg.mask_root,
+                            args.out, mode=args.mode, num_refs=args.num_refs)
+        print(f"packed {n} clips into {args.out}")
+        return
+    n = pack_dancevideo(cfg.data_root, cfg.smpl_root, cfg.mask_root,
+                        args.out, mode=args.mode, kind=args.kind,
+                        samples_per_video=args.samples_per_video,
+                        num_refs=args.num_refs, seed=args.seed)
+    print(f"packed {n} samples into {args.out}")
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -728,14 +735,18 @@ def main(argv: Optional[list] = None) -> None:
     g.add_argument("--fps", type=int, default=10)
     g.set_defaults(fn=cmd_gif)
 
-    k = sub.add_parser("pack", help="pack whole serving clips for "
-                       "`infer --packed-clips`")
+    k = sub.add_parser(
+        "pack", help="pack DanceVideo training samples into shards for "
+        "`train --shards`, or whole serving clips for `infer --packed-clips`")
     k.add_argument("--out", required=True)
     k.add_argument("--mode", default="train", choices=["train", "test"])
-    # kept so that `pack --kind clips`, as the JAX CLI spells it, runs
-    # here; its training kinds (interval, textonly) come with training
-    k.add_argument("--kind", required=True, choices=["clips"])
+    k.add_argument("--kind", default="interval",
+                   choices=["interval", "textonly", "clips"],
+                   help="interval = stage-3/4 records, textonly = stage-1/2,"
+                   " clips = whole serving clips for `infer --packed-clips`")
+    k.add_argument("--samples_per_video", type=int, default=4)
     k.add_argument("--num_refs", type=int, default=4)
+    k.add_argument("--seed", type=int, default=0)
     k.set_defaults(fn=cmd_pack)
 
     args = p.parse_args(argv)

@@ -26,6 +26,12 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")  # -v: registers / shared memory per kernel
+# Sources built with other nvcc flags than NVCC_FLAGS. The rasterizer keeps
+# --fmad=false (it is bitwise equal to its plain version); the correlation
+# is held to its plain version by a tolerance and keeps fused multiply-adds.
+SOURCE_FLAGS = {
+    "correlation.cu": tuple(f for f in NVCC_FLAGS if f != "--fmad=false"),
+}
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _LOADED: dict = {}
@@ -54,7 +60,7 @@ def find_gxx() -> str:
 def _toolchain(source: str) -> tuple:
     """(compiler finder, flags) for ``csrc/<source>``."""
     if source.endswith(".cu"):
-        return find_nvcc, NVCC_FLAGS
+        return find_nvcc, SOURCE_FLAGS.get(source, NVCC_FLAGS)
     if source.endswith(".cc"):
         return find_gxx, GXX_FLAGS
     raise ValueError(f"no compiler for {source}")

@@ -3,13 +3,15 @@
 
 A record layout is declared by a spec: ordered (name, shape, dtype)
 fields. ``pack_shard`` writes fixed-size records behind a header that
-holds a hash of the spec. ``ShardReader`` streams shuffled training
-batches through the native reader ``csrc/shardio.cc`` (the port's copy of
-``native/shardio.cc``, built with ``g++`` at first use into ``_build/``),
-so one seed gives both packages the same batches; ``ClipPackReader`` reads
-one whole serving clip per record with plain file reads. Files are
-byte-compatible with the JAX package's: either package reads what the
-other packed.
+holds a hash of the spec; ``pack_dancevideo`` packs a dataset's training
+records with it (``cli pack --kind interval|textonly``) and
+``write_clip_pack`` its serving clips. ``ShardReader`` streams shuffled
+training batches through the native reader ``csrc/shardio.cc`` (the port's
+copy of ``native/shardio.cc``, built with ``g++`` at first use into
+``_build/``), so one seed gives both packages the same batches;
+``ClipPackReader`` reads one whole serving clip per record with plain file
+reads. Files are byte-compatible with the JAX package's: either package
+reads what the other packed.
 """
 
 from __future__ import annotations
@@ -376,6 +378,58 @@ def pack_test_clips(data_root: str, smpl_root: str, mask_root: str,
                    os.path.join(mask_root, mode), vid, num_refs=num_refs)
          for vid in vids),
         out_dir, mode=mode, num_refs=num_refs)
+
+
+def pack_dancevideo(
+    data_root: str, smpl_root: str, mask_root: str, out_dir: str,
+    mode: str = "train", samples_per_video: int = 4, num_refs: int = 4,
+    seed: int = 0, num_verts: int = 6890, kind: str = "interval",
+    num_target: int = 3,
+) -> int:
+    """Pack ``samples_per_video`` random training samples of every
+    ``mode`` video into ``<out_dir>/<mode>-<kind>-00000.shard`` (the JAX
+    package's ``pack_dancevideo``, record for record from the same seed):
+    ``kind="interval"`` stage-3/4 records (``interval_spec``),
+    ``kind="textonly"`` stage-1/2 records (``textonly_spec``). Returns the
+    record count."""
+    from jafpro_tpu_torch.data.dataset import (
+        list_videos, load_interval_sample, load_textonly_sample)
+
+    if kind not in ("interval", "textonly"):
+        raise ValueError(f"kind must be 'interval' or 'textonly', got "
+                         f"{kind!r}")
+    rng = np.random.RandomState(seed)
+    if kind == "textonly":
+        spec = textonly_spec(num_refs=num_refs, num_target=num_target)
+    else:
+        spec = interval_spec(num_refs=num_refs, num_verts=num_verts)
+    os.makedirs(out_dir, exist_ok=True)
+
+    def records():
+        for vid in list_videos(data_root, mode):
+            for _ in range(samples_per_video):
+                if kind == "textonly":
+                    s = load_textonly_sample(
+                        os.path.join(data_root, mode), vid, rng,
+                        num_refs, num_target)
+                else:
+                    s = load_interval_sample(
+                        os.path.join(data_root, mode),
+                        os.path.join(smpl_root, mode),
+                        os.path.join(mask_root, mode),
+                        vid, rng, num_refs, 1)
+                rec = {}
+                for name, shape, dtype in spec:
+                    v = s[name]
+                    if v.shape != tuple(shape):  # strip/add batch dims
+                        v = v.reshape(shape)
+                    if dtype == "uint8" and v.dtype != np.uint8:
+                        v = encode_field_u8(name, v)
+                    rec[name] = v
+                yield rec
+
+    return pack_shard(
+        spec, records(), os.path.join(out_dir, f"{mode}-{kind}-00000.shard"))
 
 
 class ClipPackReader:

@@ -84,6 +84,41 @@ class UpsampleConvLReLU(nn.Module):
         return self.ConvLReLU_0(torch.cat([x, skip], dim=1))
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` as flax ``nn.BatchNorm`` runs it: the input is
+    promoted to the params' type (float32) and so is the output. In
+    training the batch's biased variance normalises the input and also
+    moves the running variance (torch would move it by the unbiased one,
+    N/(N-1) larger): ``running = (1 - momentum) * running + momentum *
+    batch``, flax's 0.99 decay at the default momentum 0.01. Names and
+    buffers are ``nn.BatchNorm2d``'s, so the bridge's rule applies."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.01):
+        super().__init__(features, eps=eps, momentum=momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        if x.numel() == x.shape[1]:
+            # one value per channel, which F.batch_norm refuses in training
+            # and flax normalises to its shift
+            shape = (1, -1, 1, 1)
+            d = x - x.mean(dim=(0, 2, 3), keepdim=True)
+            v = d.square().mean(dim=(0, 2, 3), keepdim=True)
+            return (d * torch.rsqrt(v + self.eps) * self.weight.view(shape)
+                    + self.bias.view(shape))
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+
 class SampleLayerNorm(nn.Module):
     """The CRN's LayerNorm: per-sample statistics over all of (C, H, W)
     with Bessel-corrected std, (x - mean) / (std + eps), per-channel affine."""

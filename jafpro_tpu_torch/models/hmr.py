@@ -5,9 +5,10 @@ biased 1x1 ``conv3`` / ``shortcut``, stride 2 on the LAST block of each
 layer) and an iterative 3-step ``ThetaRegressor`` giving the 85-dim
 theta = [cam (3), pose (72), shape (10)]. NCHW: an image batch is
 (B, 3, H, W), the JAX package's (B, H, W, 3) permuted. Batch norms run
-with their running statistics (``eval()``) and flax's epsilon; children
-carry the flax names, so ``bridge.load_flax`` loads a JAX tree
-(``batch_stats`` included).
+with their running statistics (``eval()``) and flax's epsilon, or in
+``train()`` with the batch's, moving the running ones as flax does
+(``FlaxBatchNorm2d``); children carry the flax names, so
+``bridge.load_flax`` loads a JAX tree (``batch_stats`` included).
 """
 
 from __future__ import annotations
@@ -22,14 +23,14 @@ from torch import nn
 from jafpro_tpu_torch.device import resolve_device
 from jafpro_tpu_torch.geometry.projection import orthographic_proj_withz_idrot
 from jafpro_tpu_torch.models.common import (
-    Conv2d, Linear, _truncated_normal_, init_params_)
+    Conv2d, FlaxBatchNorm2d, Linear, _truncated_normal_, init_params_)
 
 BN_EPS = 1e-5        # flax nn.BatchNorm's epsilon
 BN_MOMENTUM = 0.01   # flax's 0.99 decay of the running statistics
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+def _bn(c: int) -> FlaxBatchNorm2d:
+    return FlaxBatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class _PreActBottleneck(nn.Module):

@@ -1,5 +1,6 @@
 from jafpro_tpu_torch.ops.sampling import (  # noqa: F401
     grid_sample,
+    resample2d,
     resize_bilinear,
     resize_nearest,
 )

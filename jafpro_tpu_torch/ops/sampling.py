@@ -86,6 +86,24 @@ def grid_sample(
             + corner(y1i, x1i, wy * wx))
 
 
+def resample2d(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Backward-warp ``image`` (B, C, H, W) by a pixel-displacement
+    ``flow`` (B, 2, H, W), channel 0 = dx, 1 = dy: output(p) =
+    image(p + flow(p)), bilinear, zero padding (the reference's
+    ``resample2d_cuda``). As the JAX package computes it: the sample
+    point is normalised with align corners and handed to
+    ``grid_sample``."""
+    H, W = flow.shape[-2:]
+    ys = torch.arange(H, dtype=flow.dtype, device=flow.device)
+    xs = torch.arange(W, dtype=flow.dtype, device=flow.device)
+    sx = xs[None, None, :] + flow[:, 0]
+    sy = ys[None, :, None] + flow[:, 1]
+    gx = 2.0 * sx / (W - 1) - 1.0
+    gy = 2.0 * sy / (H - 1) - 1.0
+    return grid_sample(image, torch.stack([gx, gy], dim=-1),
+                       padding_mode="zeros")
+
+
 @functools.lru_cache(maxsize=64)
 def _interp_matrix(in_size: int, out_size: int,
                    align_corners: bool) -> np.ndarray:

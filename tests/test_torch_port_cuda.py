@@ -1,6 +1,8 @@
-"""The port's CUDA kernel against its plain PyTorch version (with and
-without its depth output), the rasterizer's gradient recompute, a small
-training step and a renderer gradient against the CPU's, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions: the
+rasterizer (with and without its depth output) and the correlation
+(forward and backward, float32 and bfloat16), and their launch counts; the
+rasterizer's gradient recompute, small training steps (stage 4, the flow
+harness) and a renderer gradient against the CPU's, on the card.
 
 Marked ``cuda``: each test skips where there is no CUDA device (decided
 inside the test). Run on a GPU host with
@@ -210,3 +212,68 @@ def test_renderer_gradient_card_vs_cpu(cuda):
     (ia, ga), (ib, gb) = out["cpu"], out[str(cuda)]
     assert (ia - ib).abs().max().item() <= 1e-4
     assert ((ga - gb).norm() / ga.norm()).item() <= 1e-3
+
+
+CORR_SCENES = [((8, 256, 32, 32), 20, 2), ((2, 256, 48, 128), 20, 2),
+               ((1, 256, 13, 29), 20, 2), ((2, 256, 32, 32), 4, 1)]
+
+
+@pytest.mark.parametrize("shape,md,s2", CORR_SCENES)
+def test_correlation_kernels_match_plain(cuda, shape, md, s2):
+    """Forward within 1e-5 absolute and both gradients within 1e-5
+    relative L2 of the plain version in float32 (unit-normal inputs); in
+    bfloat16 each within twice the plain bfloat16 form's own error against
+    float32 on the same rounded inputs (``chip_smoke.py`` phase 9)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    chip_smoke.check_corr_scene("test", shape, md, s2,
+                                torch.Generator().manual_seed(0))
+
+
+def test_correlation_launch_counts(cuda):
+    """One forward launch per call, one backward launch per backward, and
+    none for the plain version; a FlowNetC harness step launches each
+    once, a FlowNetSD step neither."""
+    from jafpro_tpu_torch.ops import correlation as OC
+    from jafpro_tpu_torch.train.flow_harness import (
+        make_flow_train_step, synthetic_flow_batch)
+
+    f = torch.randn(2, 16, 8, 8, device=cuda, requires_grad=True)
+    fwd, bwd = OC.correlation.launches, OC.correlation.backward_launches
+    out = OC.correlation(f, f.detach() * 2, 4, 1)
+    assert (OC.correlation.launches, OC.correlation.backward_launches) == (
+        fwd + 1, bwd)
+    out.sum().backward()
+    OC.correlation_reference(f, f, 4, 1)
+    assert (OC.correlation.launches, OC.correlation.backward_launches) == (
+        fwd + 1, bwd + 1)
+    pairs, flow = synthetic_flow_batch(np.random.RandomState(0), 2, 64)
+    for model, want in (("c", 1), ("sd", 0)):
+        init_fn, step_fn = make_flow_train_step(model, device=cuda)
+        state = init_fn(torch.Generator().manual_seed(0))
+        fwd, bwd = OC.correlation.launches, OC.correlation.backward_launches
+        step_fn(state, pairs, flow)
+        torch.cuda.synchronize()
+        assert OC.correlation.launches - fwd == want
+        assert OC.correlation.backward_launches - bwd == want
+
+
+def test_flow_step_card_vs_cpu(cuda):
+    """FlowNetC's forward and one SGD harness step at 64², batch 4, on the
+    card and on the CPU (``chip_smoke.flow_reference``: forward 1e-4,
+    metrics 1e-5, each module's update 5e-3 relative)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.flow_reference(0)

@@ -78,7 +78,13 @@ def test_modules_import_with_jax_blocked():
     """Import every port module and chip_smoke.py in a fresh interpreter in
     which ``import jax`` / ``import jafpro_tpu`` fail."""
     mods = port_modules()
-    assert "jafpro_tpu_torch.geometry.rasterizer" in mods
+    assert {"jafpro_tpu_torch.geometry.rasterizer",
+            "jafpro_tpu_torch.ops.correlation",
+            "jafpro_tpu_torch.models.flownet",
+            "jafpro_tpu_torch.train.flow_harness",
+            "jafpro_tpu_torch.data.flow_datasets",
+            "jafpro_tpu_torch.data.shardio",
+            "jafpro_tpu_torch.torch_compat"} <= set(mods)
     code = "\n".join([
         "import importlib, sys",
         "for name in ('jax', 'jaxlib', 'flax', 'jafpro_tpu'):",
@@ -111,4 +117,8 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     cfg = Config(image_size=32, part_size=16, num_parts=2, num_faces=0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         JAFProPipeline(cfg)
+    from jafpro_tpu_torch.train.flow_harness import make_flow_train_step
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_flow_train_step("c")
     assert resolve_device("cpu").type == "cpu"

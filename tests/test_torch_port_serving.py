@@ -205,8 +205,11 @@ def test_infer_refuses_mismatched_pack_and_bad_options(served, monkeypatch,
                  mask_root=served["roots"]["mask"],
                  model_save_dir=str(tmp_path / "checkpoints"))
     monkeypatch.setattr(cli, "get_general_options", lambda: cfg)
-    with pytest.raises(SystemExit):  # no --kind: the JAX CLI's default
-        cli.main(["pack", "--out", str(tmp_path / "pk"), "--mode", "test"])
+    real_pack, seen = cli.cmd_pack, []
+    monkeypatch.setattr(cli, "cmd_pack", seen.append)
+    cli.main(["pack", "--out", str(tmp_path / "pk"), "--mode", "test"])
+    assert seen[0].kind == "interval"  # no --kind: the JAX CLI's default
+    monkeypatch.setattr(cli, "cmd_pack", real_pack)
     cli.main(["pack", "--kind", "clips", "--out", str(tmp_path / "pk"),
               "--mode", "test", "--num_refs", "1"])
     with pytest.raises(SystemExit, match="repack"):
