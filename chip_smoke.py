@@ -85,14 +85,18 @@ Phases, each of which raises on failure (nothing is caught):
 9. The flow path: the correlation kernels (``csrc/correlation.cu``,
    forward and backward) against the plain version on FlowNetC's
    training shape (8, 256, 32, 32), a 384x1024 Sintel crop's (2, 256, 48,
-   128), an odd (1, 256, 13, 29), all at md 20, s2 2, and (2, 256, 32, 32)
-   at md 4, s2 1, in float32 (forward 1e-5 absolute, gradients 1e-5
-   relative L2) and bfloat16 (within twice the plain bfloat16 form's own
-   error against float32); their median ms and the plain form's beside
-   the bound. Then the harness (``make_flow_train_step``) trains FlowNetC
-   and FlowNetSD at batch 8 on 256² synthetic batches in float32 (TF32
-   off) and bfloat16, 1 warm-up and 3 timed steps each: finite loss and
-   EPE, parameters that move, s/step, samples/s, peak memory and the
+   128), an odd (1, 256, 13, 29), all at md 20, s2 2, (2, 256, 32, 32)
+   at md 4, s2 1, a ragged (3, 72, 20, 70) at md 8, s2 2 (C and W not
+   multiples of the kernel's tiles) and a wide (2, 2085, 12, 40) at md
+   20, s2 2 (f1's row too large to stay in shared memory), in float32
+   (forward 1e-5 absolute, gradients 1e-5 relative L2) and bfloat16
+   (within twice the plain bfloat16 form's own error against float32),
+   each with the source's launch plan equal to ``launch_plan``'s; their
+   median ms and the plain form's beside the bound and its share (and the
+   forward at FlowNet2's clip shape, 29 pairs). Then the harness
+   (``make_flow_train_step``) trains FlowNetC and FlowNetSD at batch 8 on
+   256² synthetic batches in float32 (TF32 off) and bfloat16, 1 warm-up
+   and 3 timed steps each: finite loss and EPE, parameters that move, s/step, samples/s, peak memory and the
    correlation launches of each step (FlowNetC: 1 forward, 1 backward;
    FlowNetSD: none). FlowNet2 (float32) then runs the 29 pairs of a
    seeded 30-frame 256² clip in one batch (ms per clip, 1 launch). Last,
@@ -128,6 +132,7 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12
 OPS_PER_PAIR = 40  # fp32 operations per (pixel, face) test in the kernel
 KERNEL_SOURCE = "jafpro_tpu_torch/csrc/rasterizer.cu"
@@ -1139,7 +1144,10 @@ CORR_SCENES = (
     ("sintel_384x1024", (2, 256, 48, 128), 20, 2),
     ("odd", (1, 256, 13, 29), 20, 2),
     ("md4_s1", (2, 256, 32, 32), 4, 1),
+    ("ragged", (3, 72, 20, 70), 8, 2),   # C, W ragged against the tiles
+    ("wide_c", (2, 2085, 12, 40), 20, 2),   # f1's row streamed
 )
+FLOWNET2_CORR_SHAPE = (29, 256, 32, 32)   # FlowNet2 on a 30-frame clip
 CORR_FWD_ATOL = 1e-5      # float32 forward, unit-normal inputs
 CORR_BWD_RTOL = 1e-5      # float32 backward, relative L2 per gradient
 FLOW_BATCH, FLOW_SIZE = 8, 256   # the reference harness's defaults
@@ -1181,6 +1189,17 @@ def corr_bound_ms(shape, md: int, s2: int, itemsize: int,
                                        else "bytes")
 
 
+def corr_tc_bound_ms(shape, md: int, s2: int, backward: bool) -> float:
+    """The 3xTF32 tensor-core bound: three TF32 products per float32
+    multiply-add of the function at the dense TF32 rate (the kernel's
+    banded tiles compute more; not the reported bound)."""
+    from jafpro_tpu_torch.ops.correlation import window
+
+    B, C, H, W = shape
+    ops = 2 * B * C * H * W * window(md, s2) ** 2 * (2 if backward else 1)
+    return 1e3 * 3 * ops / PEAK_TF32_FLOPS
+
+
 def median_cuda_ms(fn, reps: int = 5, iters: int = 3) -> float:
     return statistics.median(cuda_time_ms(fn, iters) for _ in range(reps))
 
@@ -1191,6 +1210,13 @@ def check_corr_scene(name: str, shape, md: int, s2: int, gen) -> dict:
     from jafpro_tpu_torch.ops import correlation as OC
 
     dev = torch.device("cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        want = OC.launch_plan(shape, md, s2, dt)
+        got = OC.kernel_plan(shape, md, s2, dt)
+        if any(got[k] != {f: want[k][f] for f in got[k]}
+               for k in ("forward", "backward")):
+            raise AssertionError(f"{name}: the source's launch plan {got} "
+                                 f"is not launch_plan's {want}")
     f1 = torch.randn(shape, generator=gen).to(dev)
     f2 = torch.randn(shape, generator=gen).to(dev)
     out = {}
@@ -1249,13 +1275,19 @@ def check_corr_scene(name: str, shape, md: int, s2: int, gen) -> dict:
     return out
 
 
+CORR_ITERS = 20   # launches per timed run of a kernel
+
+
 def time_corr(shape, md: int, s2: int, gen, card: str) -> dict:
     """Median ms of the kernels and the plain form at ``shape`` (float32),
-    forward and forward + backward, beside the bound; and what a
-    channels-last copy of both inputs would cost."""
+    forward and forward + backward, beside the bound and its share; the
+    forward at FlowNet2's clip shape; and what a channels-last copy of
+    both inputs would cost."""
     from jafpro_tpu_torch.ops import correlation as OC
 
     dev = torch.device("cuda")
+    c1 = torch.randn(FLOWNET2_CORR_SHAPE, generator=gen).to(dev)
+    c2 = torch.randn(FLOWNET2_CORR_SHAPE, generator=gen).to(dev)
     f1 = torch.randn(shape, generator=gen).to(dev)
     f2 = torch.randn(shape, generator=gen).to(dev)
     g = OC.correlation_cuda(f1, f2, md, s2).normal_()
@@ -1267,9 +1299,13 @@ def time_corr(shape, md: int, s2: int, gen, card: str) -> dict:
                             g)
 
     t = {
-        "ms": median_cuda_ms(lambda: OC.correlation_cuda(f1, f2, md, s2)),
+        "ms": median_cuda_ms(lambda: OC.correlation_cuda(f1, f2, md, s2),
+                             iters=CORR_ITERS),
         "bwd_ms": median_cuda_ms(
-            lambda: OC.correlation_backward_cuda(g, f1, f2, md, s2)),
+            lambda: OC.correlation_backward_cuda(g, f1, f2, md, s2),
+            iters=CORR_ITERS),
+        "clip_ms": median_cuda_ms(
+            lambda: OC.correlation_cuda(c1, c2, md, s2), iters=CORR_ITERS),
         "plain_ms": median_cuda_ms(
             lambda: OC.correlation_reference(f1, f2, md, s2), 3, 1),
         "plain_fb_ms": median_cuda_ms(plain_fb, 3, 1),
@@ -1283,14 +1319,26 @@ def time_corr(shape, md: int, s2: int, gen, card: str) -> dict:
     t["bound_ms"], t["bound_by"] = corr_bound_ms(shape, md, s2, 4, False)
     t["bwd_bound_ms"], t["bwd_bound_by"] = corr_bound_ms(shape, md, s2, 4,
                                                          True)
+    t["clip_bound_ms"], _ = corr_bound_ms(FLOWNET2_CORR_SHAPE, md, s2, 4,
+                                          False)
+    tc = corr_tc_bound_ms(shape, md, s2, False)
+    tc_bwd = corr_tc_bound_ms(shape, md, s2, True)
     log(f"[corr] {tuple(shape)} md {md} s2 {s2} float32, median ms: "
         f"forward kernel {t['ms']:.4f}, plain {t['plain_ms']:.3f}, bound "
-        f"{t['bound_ms']:.4f} ({t['bound_by']}); forward+backward kernel "
+        f"{t['bound_ms']:.4f} ({t['bound_by']}, CUDA-core FP32; share "
+        f"{t['bound_ms'] / t['ms']:.3f}; 3xTF32 tensor-core bound "
+        f"{tc:.4f}, share {tc / t['ms']:.3f}); forward+backward kernel "
         f"{t['fb_ms']:.4f}, plain {t['plain_fb_ms']:.3f}; backward kernel "
         f"{t['bwd_ms']:.4f}, plain {t['plain_bwd_ms']:.3f}, bound "
-        f"{t['bwd_bound_ms']:.4f} "
-        f"({t['bwd_bound_by']}); a channels-last copy of f1 and f2 (not "
-        f"made: the kernel reads NCHW) {t['copy_ms']:.4f} [{card}]")
+        f"{t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}, CUDA-core FP32; "
+        f"share {t['bwd_bound_ms'] / t['bwd_ms']:.3f}; 3xTF32 tensor-core "
+        f"bound {tc_bwd:.4f}, share {tc_bwd / t['bwd_ms']:.3f}); "
+        f"a channels-last copy of f1 and f2 (not made: the kernel reads "
+        f"NCHW) {t['copy_ms']:.4f} [{card}]")
+    log(f"[corr] FlowNet2's clip shape {FLOWNET2_CORR_SHAPE} float32: "
+        f"forward kernel {t['clip_ms']:.4f} ms, bound "
+        f"{t['clip_bound_ms']:.4f} (share "
+        f"{t['clip_bound_ms'] / t['clip_ms']:.3f}) [{card}]")
     return t
 
 
@@ -1498,7 +1546,8 @@ def phase_flow(seed: int, card: str) -> list:
          "replaces": CORR_REPLACES, "launches": fwd,
          "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-         "library_ms": None, "fwd_bwd_ms": t["fb_ms"],
+         "library_ms": None, "flownet2_shape_ms": t["clip_ms"],
+         "fwd_bwd_ms": t["fb_ms"],
          "plain_fwd_bwd_ms": t["plain_fb_ms"],
          "channels_last_copy_ms": t["copy_ms"],
          "s_step_c_float32": train[("c", "float32")]["s_step"],

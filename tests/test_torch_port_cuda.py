@@ -215,7 +215,9 @@ def test_renderer_gradient_card_vs_cpu(cuda):
 
 
 CORR_SCENES = [((8, 256, 32, 32), 20, 2), ((2, 256, 48, 128), 20, 2),
-               ((1, 256, 13, 29), 20, 2), ((2, 256, 32, 32), 4, 1)]
+               ((1, 256, 13, 29), 20, 2), ((2, 256, 32, 32), 4, 1),
+               ((3, 72, 20, 70), 8, 2),   # C, W ragged against the tiles
+               ((2, 2085, 12, 40), 20, 2)]  # f1's row streamed, not resident
 
 
 @pytest.mark.parametrize("shape,md,s2", CORR_SCENES)
@@ -223,7 +225,8 @@ def test_correlation_kernels_match_plain(cuda, shape, md, s2):
     """Forward within 1e-5 absolute and both gradients within 1e-5
     relative L2 of the plain version in float32 (unit-normal inputs); in
     bfloat16 each within twice the plain bfloat16 form's own error against
-    float32 on the same rounded inputs (``chip_smoke.py`` phase 9)."""
+    float32 on the same rounded inputs; the source's launch plan equal to
+    ``launch_plan``'s (``chip_smoke.py`` phase 9)."""
     import os
     import sys
 

@@ -1,9 +1,11 @@
 """Port parity for the flow path's ops: ``correlation_reference`` (the
 plain form of the correlation kernel) and its backward against
 ``jafpro_tpu.ops.correlation`` and ``jax.grad``; the backward kernel's
-gathers in plain form (``correlation_backward_reference``); ``resample2d``;
-and ``FlaxBatchNorm2d`` (FlowNet's and HMR's batch norm) against flax's
-``nn.BatchNorm`` in training mode, running statistics included.
+gathers in plain form (``correlation_backward_reference``); the kernel's
+tiling (``tiled_correlation`` below mirrors ``csrc/correlation.cu``'s index
+map) and its launch plan; ``resample2d``; and ``FlaxBatchNorm2d``
+(FlowNet's and HMR's batch norm) against flax's ``nn.BatchNorm`` in
+training mode, running statistics included.
 
 Inputs are numpy-seeded, float32 unless a test says otherwise. Tolerances:
 1e-6 absolute on the correlation (channel means of unit-normal products),
@@ -118,6 +120,164 @@ def test_correlation_refuses_bad_arguments():
         tc.correlation(a, a.double(), 2, 1)
     with pytest.raises(ValueError, match="CUDA"):   # the kernel's wrapper
         tc.correlation_cuda(a, a, 2, 1)
+
+
+def tiled_correlation(f1, f2, g, md, s2, dtype=torch.float32):
+    """``csrc/correlation.cu``'s index map in plain torch (float64): per block
+    (row y, tile of ``xt`` = 16·s2 pixels from X0) and parity class π, the
+    class's 16 pixels x_m = X0 + π + s2·m against the staged rows' class
+    columns t = 0 .. N-1 at x' = X0 - md + π + s2·t (N = ``nc``, the band's
+    M + n - 1 = 15 + n rounded up to 8; zero outside the image and past the
+    band), channels zero-padded to whole chunks, rows y ± dy outside the
+    image skipped. Forward: P = A·B, out[iy·n + j, y, x_m] = P[m, m + j].
+    Backward: grad_f1 = Σ_dy G·B^T with G[m, m + j] = g[iy·n + j, y, x_m];
+    grad_f2 = Σ_dy G'·A'^T over f1's rows y - dy with G'[m, m + n-1-j] =
+    g[iy·n + j, y - dy, x_m + (n-1-j)·s2 - md]. Returns (out, grad_f1,
+    grad_f2) in float64, each divided by C."""
+    plan = tc.launch_plan(tuple(f1.shape), md, s2, dtype)
+    n, nc, wpc, xt = plan["n"], plan["nc"], plan["wpc"], plan["xt"]
+    B, C, H, W = f1.shape
+    f32 = dtype == torch.float32
+    kc = 8 * wpc * (1 if f32 else 2)          # channels per forward chunk
+    cb = 4 * 16 * wpc                         # channels per backward block
+    nck = nc if f32 else -(-nc // 16) * 16    # the backward's K extent
+    cf, cg = -(-C // kc) * kc, -(-C // cb) * cb
+    a, b, gr = (t.double() for t in (f1, f2, g))
+    out = torch.zeros(B, n * n, H, W, dtype=torch.float64)
+    g1 = torch.zeros(B, C, H, W, dtype=torch.float64)
+    g2 = torch.zeros_like(g1)
+    m, j = torch.arange(16), torch.arange(n)
+
+    def rows(fmap, row, pi, X0, cols, cpad):
+        """(B, cpad, cols): fmap's row at the class columns, zero-padded."""
+        t = torch.arange(cols)
+        x = X0 - md + pi + s2 * t
+        ok = (x >= 0) & (x < W) & (t < 15 + n)
+        st = torch.zeros(B, cpad, cols, dtype=torch.float64)
+        st[:, :C, ok] = fmap[:, :, row, x[ok]]
+        return st
+
+    for X0 in range(0, W, xt):
+        for pi in range(s2):
+            xm = X0 + pi + s2 * m
+            okm = xm < W
+            mv, xv = m[okm], xm[okm]
+            for y in range(H):
+                A = torch.zeros(B, cf, 16, dtype=torch.float64)
+                A[:, :C, okm] = a[:, :, y, xv]
+                for iy in range(n):
+                    dy = -md + iy * s2
+                    if 0 <= y + dy < H:
+                        P = torch.einsum("bcm,bct->bmt", A,
+                                         rows(b, y + dy, pi, X0, nc, cf))
+                        band = P[:, mv[:, None], mv[:, None] + j]  # (B,m,j)
+                        out[:, iy * n + j[:, None], y, xv] = \
+                            band.permute(0, 2, 1)
+                        G = torch.zeros(B, 16, nck, dtype=torch.float64)
+                        G[:, mv[:, None], mv[:, None] + j] = gr[
+                            :, iy * n + j, y][:, :, xv].permute(0, 2, 1)
+                        F2 = rows(b, y + dy, pi, X0, nck, cg)
+                        g1[:, :, y, xv] += torch.einsum(
+                            "bmt,bct->bcm", G, F2)[:, :C, okm]
+                    if 0 <= y - dy < H:
+                        x_src = xm[:, None] + (n - 1 - j) * s2 - md  # (m, j)
+                        ok = okm[:, None] & (x_src >= 0) & (x_src < W)
+                        G = torch.zeros(B, 16, nck, dtype=torch.float64)
+                        mi, ji = ok.nonzero(as_tuple=True)
+                        G[:, mi, mi + n - 1 - ji] = gr[
+                            :, iy * n + ji, y - dy, x_src[mi, ji]]
+                        F1 = rows(a, y - dy, pi, X0, nck, cg)
+                        g2[:, :, y, xv] += torch.einsum(
+                            "bmt,bct->bcm", G, F1)[:, :C, okm]
+    return out / C, g1 / C, g2 / C
+
+
+# the kernel scenes' ragged cases at small C: W over one tile or not a
+# multiple of it, stride 1 and 2, C not a multiple of a chunk
+TILING_SCENES = [((1, 5, 13, 29), 20, 2), ((1, 6, 9, 21), 4, 1),
+                 ((2, 9, 11, 70), 8, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,md,s2", TILING_SCENES)
+def test_kernel_tiling_matches_plain_forms(shape, md, s2, dtype):
+    """The kernel's index map (parity classes, N = M + n - 1 band columns,
+    the band P[m, m + j], the banded G of both gradients, zero-padded C and
+    W edges) gives ``correlation_reference`` and
+    ``correlation_backward_reference``: 1e-6 absolute forward, 1e-5
+    relative L2 on the gradients (float32 inputs; ``dtype`` picks the
+    bfloat16 plan's chunks and K extent)."""
+    rng = np.random.RandomState(sum(shape))
+    f1, f2 = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+              for _ in range(2))
+    n = tc.window(md, s2)
+    g = torch.from_numpy(rng.randn(shape[0], n * n, *shape[2:]).astype(
+        np.float32))
+    out, g1, g2 = tiled_correlation(f1, f2, g, md, s2, dtype)
+    ref = tc.correlation_reference(f1, f2, md, s2)
+    r1, r2 = tc.correlation_backward_reference(g, f1, f2, md, s2)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6, rtol=0)
+    assert rel_l2(g1, r1) <= 1e-5 and rel_l2(g2, r2) <= 1e-5
+
+
+# launch_plan for the phase-9 scenes: (forward grid, threads, shared bytes,
+# backward grid, shared bytes), float32 then bfloat16. FlowNetC float32: a
+# block per (x-tile, row, image) with 2 classes x 4 warps; forward shared
+# words 256 x 40 (f1's row) + 4 x 32 x 88 (the f2 ring) + 2 x 4 x 16 x 40
+# (partial P tiles) = 26624; backward 4 x 2 x (16 + 64) x 44 = 28160.
+PLAN_SCENES = {
+    ((8, 256, 32, 32), 20, 2): [((1, 32, 8), 256, 106496, (1, 32, 8),
+                                 112640),
+                                ((1, 32, 8), 256, 86016, (1, 32, 8), 71680)],
+    ((2, 256, 48, 128), 20, 2): [((4, 48, 2), 256, 106496, (4, 48, 2),
+                                  112640),
+                                 ((4, 48, 2), 256, 86016, (4, 48, 2), 71680)],
+    ((1, 256, 13, 29), 20, 2): [((1, 13, 1), 256, 106496, (1, 13, 1),
+                                 112640),
+                                ((1, 13, 1), 256, 86016, (1, 13, 1), 71680)],
+    ((2, 256, 32, 32), 4, 1): [((2, 32, 2), 256, 61440, (2, 32, 2), 64512),
+                               ((2, 32, 2), 256, 49152, (2, 32, 2), 46080)],
+    ((3, 72, 20, 70), 8, 2): [((3, 20, 3), 256, 56320, (3, 20, 3), 71680),
+                              ((3, 20, 3), 256, 51200, (3, 20, 3), 51200)],
+}
+
+
+@pytest.mark.parametrize("scene", list(PLAN_SCENES))
+def test_launch_plan_of_the_scenes(scene):
+    shape, md, s2 = scene
+    for dtype, want in zip((torch.float32, torch.bfloat16),
+                           PLAN_SCENES[scene]):
+        p = tc.launch_plan(shape, md, s2, dtype)
+        got = (p["forward"]["grid"], p["forward"]["threads"],
+               p["forward"]["smem"], p["backward"]["grid"],
+               p["backward"]["smem"])
+        assert got == want
+        assert max(got[2], got[4]) <= tc.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype,last", [(torch.float32, 1024),
+                                        (torch.bfloat16, 2048)])
+def test_launch_plan_streams_f1_past_shared_memory(dtype, last):
+    """At md 20, s2 2 f1's row stays resident up to ``last`` channels
+    (32 x 40 words per 32-word chunk, 4 x 32 x 88 for the f2 ring, 2 x 4 x
+    16 x 40 for the P tiles: 57 344 words at 32 chunks); past that its
+    chunks ride the ring with f2's, at the same shared memory for any C."""
+    fwd = [tc.launch_plan((2, c, 12, 40), 20, 2, dtype)["forward"]
+           for c in (last, last + 1, 2085, 8 * last)]
+    assert [f["f1_resident"] for f in fwd] == [True, False, False, False]
+    assert fwd[0]["smem"] == 4 * (32 * 32 * 40 + 4 * 32 * 88 + 2 * 4 * 16 * 40)
+    assert fwd[1]["smem"] == fwd[2]["smem"] == fwd[3]["smem"] == \
+        4 * (4 * 32 * 40 + 4 * 32 * 88 + 2 * 4 * 16 * 40)
+    assert fwd[0]["smem"] <= tc.SMEM_LIMIT
+
+
+def test_launch_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="stride2"):
+        tc.launch_plan((1, 8, 32, 32), 18, 9)
+    with pytest.raises(ValueError, match="displacements"):
+        tc.launch_plan((1, 8, 32, 32), 42, 1)      # n = 85
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tc.launch_plan((1, 8, 32, 32), 4, 1, torch.float16)
 
 
 @pytest.mark.parametrize("H,W,scale", [(8, 8, 1.5), (7, 12, 4.0),
