@@ -104,6 +104,23 @@ Phases, each of which raises on failure (nothing is caught):
    relative and one SGD harness step within 1e-5 on loss and EPE and 5e-3
    on each module's update (at batch 4, see ``FLOW_REF_BATCH``).
 
+10. The ablation zoo: every module of ``models/ablations.py`` and the
+   recurrence and CRN forms beside them (``ConvLSTM``, ``ConvGRU`` with
+   both cells, ``CRN``, ``CRNSmall``, ``AccumulateGRU`` with both cells),
+   one forward each at its reference width in float32 (TF32 off), batch 1,
+   from seeded weights: 256² images, the 800x1200 atlas for ``UNetTA``,
+   (1, 4, 24, 200, 200, 3) part stacks for the fusions and
+   ``MaxFusionModule``, ``SpatioTempoCRN`` at ngf 512, ``RRDB`` at 64
+   features, growth 32, 128², the recurrences at hidden 64, 64², T = 4.
+   Checks shapes and finite outputs; reports the median ms of 3 after a
+   warm-up and the peak memory; runs ``EdgeGenerator`` and
+   ``PatchDiscriminator70`` once more with ``update_sn=True`` and checks
+   that every ``u`` and ``sigma`` moved. Then every module at a small size
+   from the same seeded weights on the card and on the CPU: outputs within
+   1e-4 of the largest, the spectral-norm nets' updated ``u`` and
+   ``sigma`` within 1e-5. No module of the zoo launches a kernel of
+   ``csrc/``.
+
 Phase 3 also runs the kernel with its depth output on every scene (depth
 within 1e-6 relative of the plain version's, 0 at background; whether it
 is bitwise is printed), checks the gradient's recompute of weights and
@@ -111,7 +128,10 @@ depth (``winner_weights_depth``) against the kernel's, and times the
 kernel with and without the depth output in turns.
 
 Prints the kernels' JSON line (the rasterizer, the correlation and its
-backward), the card's name and power limit, and as its last line
+backward; the correlation's ``bound_ms`` is the larger of its bytes time
+and the lower of its two operation times, FP32 on the CUDA cores or
+3xTF32 on the tensor cores, ``bound_rate`` naming the one taken), the
+card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1200,6 +1220,28 @@ def corr_tc_bound_ms(shape, md: int, s2: int, backward: bool) -> float:
     return 1e3 * 3 * ops / PEAK_TF32_FLOPS
 
 
+def corr_reported_bound(shape, md: int, s2: int, backward: bool) -> tuple:
+    """(bound ms, "bytes" or "operations", the rate it is taken at) that
+    the kernels line reports for B4 in float32: the larger of the bytes
+    time and the lower of the two operation times, FP32 on the CUDA cores
+    (``corr_bound_ms``) and 3xTF32 on the tensor cores
+    (``corr_tc_bound_ms``, the kernel's own arithmetic)."""
+    from jafpro_tpu_torch.ops.correlation import window
+
+    B, C, H, W = shape
+    D = window(md, s2) ** 2
+    feat, vol = B * C * H * W, B * D * H * W
+    nbytes = 4 * ((vol + 4 * feat) if backward else (2 * feat + vol))
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    flops = 2 * feat * D * (2 if backward else 1)
+    ops = {"FP32 CUDA cores": 1e3 * flops / PEAK_FP32_FLOPS,
+           "3xTF32 tensor cores": corr_tc_bound_ms(shape, md, s2, backward)}
+    rate = min(ops, key=ops.get)
+    if t_bytes >= ops[rate]:
+        return t_bytes, "bytes", "HBM"
+    return ops[rate], "operations", rate
+
+
 def median_cuda_ms(fn, reps: int = 5, iters: int = 3) -> float:
     return statistics.median(cuda_time_ms(fn, iters) for _ in range(reps))
 
@@ -1316,28 +1358,30 @@ def time_corr(shape, md: int, s2: int, gen, card: str) -> dict:
             f2.contiguous(memory_format=torch.channels_last))),
     }
     t["fb_ms"] = t["ms"] + t["bwd_ms"]
-    t["bound_ms"], t["bound_by"] = corr_bound_ms(shape, md, s2, 4, False)
-    t["bwd_bound_ms"], t["bwd_bound_by"] = corr_bound_ms(shape, md, s2, 4,
-                                                         True)
-    t["clip_bound_ms"], _ = corr_bound_ms(FLOWNET2_CORR_SHAPE, md, s2, 4,
-                                          False)
-    tc = corr_tc_bound_ms(shape, md, s2, False)
-    tc_bwd = corr_tc_bound_ms(shape, md, s2, True)
+    t["bound_ms"], t["bound_by"], t["bound_rate"] = corr_reported_bound(
+        shape, md, s2, False)
+    t["bwd_bound_ms"], t["bwd_bound_by"], t["bwd_bound_rate"] = \
+        corr_reported_bound(shape, md, s2, True)
+    t["clip_bound_ms"], _, clip_rate = corr_reported_bound(
+        FLOWNET2_CORR_SHAPE, md, s2, False)
+    fp32, _ = corr_bound_ms(shape, md, s2, 4, False)
+    fp32_bwd, _ = corr_bound_ms(shape, md, s2, 4, True)
     log(f"[corr] {tuple(shape)} md {md} s2 {s2} float32, median ms: "
         f"forward kernel {t['ms']:.4f}, plain {t['plain_ms']:.3f}, bound "
-        f"{t['bound_ms']:.4f} ({t['bound_by']}, CUDA-core FP32; share "
-        f"{t['bound_ms'] / t['ms']:.3f}; 3xTF32 tensor-core bound "
-        f"{tc:.4f}, share {tc / t['ms']:.3f}); forward+backward kernel "
+        f"{t['bound_ms']:.4f} ({t['bound_by']}, {t['bound_rate']}; share "
+        f"{t['bound_ms'] / t['ms']:.3f}; FP32 CUDA-core bound "
+        f"{fp32:.4f}, share {fp32 / t['ms']:.3f}); forward+backward kernel "
         f"{t['fb_ms']:.4f}, plain {t['plain_fb_ms']:.3f}; backward kernel "
         f"{t['bwd_ms']:.4f}, plain {t['plain_bwd_ms']:.3f}, bound "
-        f"{t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}, CUDA-core FP32; "
-        f"share {t['bwd_bound_ms'] / t['bwd_ms']:.3f}; 3xTF32 tensor-core "
-        f"bound {tc_bwd:.4f}, share {tc_bwd / t['bwd_ms']:.3f}); "
+        f"{t['bwd_bound_ms']:.4f} ({t['bwd_bound_by']}, "
+        f"{t['bwd_bound_rate']}; share "
+        f"{t['bwd_bound_ms'] / t['bwd_ms']:.3f}; FP32 CUDA-core bound "
+        f"{fp32_bwd:.4f}, share {fp32_bwd / t['bwd_ms']:.3f}); "
         f"a channels-last copy of f1 and f2 (not made: the kernel reads "
         f"NCHW) {t['copy_ms']:.4f} [{card}]")
     log(f"[corr] FlowNet2's clip shape {FLOWNET2_CORR_SHAPE} float32: "
         f"forward kernel {t['clip_ms']:.4f} ms, bound "
-        f"{t['clip_bound_ms']:.4f} (share "
+        f"{t['clip_bound_ms']:.4f} ({clip_rate}; share "
         f"{t['clip_bound_ms'] / t['clip_ms']:.3f}) [{card}]")
     return t
 
@@ -1546,6 +1590,7 @@ def phase_flow(seed: int, card: str) -> list:
          "replaces": CORR_REPLACES, "launches": fwd,
          "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+         "bound_rate": t["bound_rate"],
          "library_ms": None, "flownet2_shape_ms": t["clip_ms"],
          "fwd_bwd_ms": t["fb_ms"],
          "plain_fwd_bwd_ms": t["plain_fb_ms"],
@@ -1558,8 +1603,252 @@ def phase_flow(seed: int, card: str) -> list:
          "launches": bwd, "max_abs_err": worst_b,
          "ms": t["bwd_ms"], "plain_ms": t["plain_bwd_ms"],
          "bound_ms": t["bwd_bound_ms"], "bound_by": t["bwd_bound_by"],
-         "library_ms": None},
+         "bound_rate": t["bwd_bound_rate"], "library_ms": None},
     ]
+
+
+# --------------------------------------------------------------- phase 10
+
+ZOO_RTOL = 1e-4      # card vs CPU, of the largest output
+ZOO_SN_ATOL = 1e-5   # card vs CPU, spectral-norm u and sigma
+ZOO_PARTS = (1, 4, 24, 200, 200, 3)   # 4 references, 24 parts of 200 px
+
+
+def zoo_specs() -> list:
+    """The zoo, one entry per module: (name, build(small, **kw) -> module,
+    inputs(small) -> args, arrays as shapes to fill). Full size is the
+    reference width: 256² images, the 800x1200 atlas, (1, 4, 24, 200, 200,
+    3) part stacks, RRDB at 64 features, growth 32, 128², the recurrences
+    at hidden 64, 64², T = 4. Small is a CPU-sized cut of the same net."""
+    from jafpro_tpu_torch.models import ablations as A
+    from jafpro_tpu_torch.models.accumulate import AccumulateGRU
+    from jafpro_tpu_torch.models.conv_lstm import ConvGRU, ConvLSTM
+    from jafpro_tpu_torch.models.crn import CRN, CRNSmall
+
+    def img(c, full, small=32):
+        return lambda sm: [(1, c, small if sm else full[0],
+                            small if sm else full[-1])]
+
+    def parts(sm):
+        return [(1, 2, 2, 16, 16, 3) if sm else ZOO_PARTS]
+
+    def seq(sm):
+        return [(1, 4, 3) + ((16, 16) if sm else (64, 64)), "mask"]
+
+    def crn_in(c, extra=()):
+        return lambda sm: [(1, c) + ((64, 64) if sm else (256, 256)),
+                           64 if sm else 256, *extra]
+
+    def st_in(sm):
+        S = 64 if sm else 256
+        return [(1, 6, S, S), (1, 6, S, S), S, ("flow", (1, 2, S, S))]
+
+    def n_parts(sm):
+        return 2 if sm else 24
+
+    def rb(sm):
+        return {"residual_blocks": 1} if sm else {}
+
+    return [
+        ("ConvLSTM", lambda sm, **k: ConvLSTM(3, 8 if sm else 64, **k), seq),
+        ("ConvGRU", lambda sm, **k: ConvGRU(3, 8 if sm else 64, **k), seq),
+        ("ConvGRU(modgru)", lambda sm, **k: ConvGRU(
+            3, 8 if sm else 64, cell="modgru", **k), seq),
+        ("CRN", lambda sm, **k: CRN(fg=True, **k), crn_in(3)),
+        ("CRNSmall", lambda sm, **k: CRNSmall(fg=True, **k), crn_in(3)),
+        ("AccumulateGRU", lambda sm, **k: AccumulateGRU(n_parts(sm), **k),
+         lambda sm: parts(sm) + ["refmask"]),
+        ("AccumulateGRU(modgru)", lambda sm, **k: AccumulateGRU(
+            n_parts(sm), cell="modgru", **k),
+         lambda sm: parts(sm) + ["refmask"]),
+        ("UNetSE", lambda sm, **k: A.UNetSE(**k), img(3, (200,))),
+        ("UNetGenerator", lambda sm, **k: A.UNetGenerator(**k),
+         img(3, (256,), 64)),
+        ("UNetTA", lambda sm, **k: A.UNetTA(**k),
+         lambda sm: [(1, 3, 32, 48) if sm else (1, 3, 800, 1200)]),
+        ("AccumulatePlain", lambda sm, **k: A.AccumulatePlain(
+            n_parts(sm), refs=2 if sm else 4, **k), parts),
+        ("AccumulateMaxFusion", lambda sm, **k: A.AccumulateMaxFusion(
+            n_parts(sm), **k), parts),
+        ("AccumulateAvgFusion", lambda sm, **k: A.AccumulateAvgFusion(
+            n_parts(sm), **k), parts),
+        ("AccumulateMask", lambda sm, **k: A.AccumulateMask(
+            n_parts(sm), refs=2 if sm else 4, **k), parts),
+        ("CodeEncoder", lambda sm, **k: A.CodeEncoder(**k),
+         lambda sm: [(1, 3, 200, 200)]),
+        ("CodeDecoder", lambda sm, **k: A.CodeDecoder(**k),
+         lambda sm: [(1, 512)]),
+        ("MaxFusionModule", lambda sm, **k: A.MaxFusionModule(
+            n_parts(sm), **k),
+         lambda sm: [(1, 2, 2, 200, 200, 3) if sm else ZOO_PARTS]),
+        ("Vid2VidResnetBlock", lambda sm, **k: A.Vid2VidResnetBlock(
+            8 if sm else 256, **k), lambda sm: [
+                (1, 8, 16, 16) if sm else (1, 256, 64, 64)]),
+        ("PredictiveModule", lambda sm, **k: A.PredictiveModule(
+            n_blocks=1 if sm else 6, **k), img(9, (256,))),
+        ("BlendingModule", lambda sm, **k: A.BlendingModule(**k),
+         lambda sm: img(3, (256,))(sm) * 3),
+        ("EdgeConnectResnetBlock", lambda sm, **k: A.EdgeConnectResnetBlock(
+            8 if sm else 256, spectral=True, **k), lambda sm: [
+                (1, 8, 16, 16) if sm else (1, 256, 64, 64)]),
+        ("InpaintGenerator", lambda sm, **k: A.InpaintGenerator(
+            **rb(sm), **k), img(6, (256,))),
+        ("EdgeGenerator", lambda sm, **k: A.EdgeGenerator(**rb(sm), **k),
+         img(3, (256,))),
+        ("PatchDiscriminator70", lambda sm, **k: A.PatchDiscriminator70(**k),
+         img(3, (256,))),
+        ("NLayerDiscriminator", lambda sm, **k: A.NLayerDiscriminator(
+            ndf=16 if sm else 64, **k), img(3, (256,))),
+        ("PixelDiscriminator", lambda sm, **k: A.PixelDiscriminator(
+            ndf=16 if sm else 64, **k), img(3, (256,))),
+        ("EDSRResBlock", lambda sm, **k: A.EDSRResBlock(8 if sm else 64, **k),
+         lambda sm: [(1, 8, 16, 16) if sm else (1, 64, 128, 128)]),
+        ("ResidualDenseBlock5C", lambda sm, **k: A.ResidualDenseBlock5C(
+            8 if sm else 64, 4 if sm else 32, **k),
+         lambda sm: [(1, 8, 16, 16) if sm else (1, 64, 128, 128)]),
+        ("RRDB", lambda sm, **k: A.RRDB(8 if sm else 64, 4 if sm else 32,
+                                        **k),
+         lambda sm: [(1, 8, 16, 16) if sm else (1, 64, 128, 128)]),
+        ("AutoEncoder", lambda sm, **k: A.AutoEncoder(**k),
+         img(3, (256,), 64)),
+        ("CRNAuto", lambda sm, **k: A.CRNAuto(**k), lambda sm: crn_in(6, [
+            (1, 3) + ((64, 64) if sm else (256, 256))])(sm)),
+        ("SpatioTempoCRN", lambda sm, **k: A.SpatioTempoCRN(
+            ngf=32 if sm else 512, **k), st_in),
+    ]
+
+
+SN_NETS = ("EdgeConnectResnetBlock", "EdgeGenerator", "PatchDiscriminator70")
+
+
+def zoo_inputs(spec, small: bool, seed: int, dev) -> list:
+    """The module's seeded inputs on ``dev``: uniform [-1, 1) arrays, a
+    reference mask with one masked step, a flow of 0.05 grid units."""
+    rng = np.random.RandomState(seed)
+    args = []
+    for a in spec(small):
+        if a == "mask":
+            m = np.ones((1, 4), np.float32)
+            m[0, 2] = 0.0
+            args.append(torch.from_numpy(m).to(dev))
+        elif a == "refmask":
+            n = args[0].shape[1]
+            args.append(torch.ones((1, n), device=dev))
+        elif isinstance(a, int):
+            args.append(a)
+        else:
+            scale = 1.0
+            if a[0] == "flow":
+                a, scale = a[1], 0.05
+            args.append(torch.from_numpy(scale * rng.uniform(
+                -1, 1, a).astype(np.float32)).to(dev))
+    return args
+
+
+def zoo_outputs(out) -> list:
+    """The output tensors of one call, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    flat = []
+    for o in out:
+        flat += zoo_outputs(o)
+    return flat
+
+
+def sn_state(module) -> dict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()
+            if k.endswith((".u", ".sigma"))}
+
+
+def zoo_reference(seed: int) -> float:
+    """Every zoo module at a small size from the same seeded weights on the
+    card and on the CPU (spectral-norm nets with ``update_sn=True``):
+    outputs within ZOO_RTOL of the largest, updated ``u`` and ``sigma``
+    within ZOO_SN_ATOL. Returns the worst relative output gap."""
+    worst = 0.0
+    for i, (name, build, spec) in enumerate(zoo_specs()):
+        outs, states = [], []
+        for dev in ("cuda", "cpu"):
+            net = build(True, device=dev,
+                        generator=torch.Generator().manual_seed(seed + i))
+            kw = {"update_sn": True} if name in SN_NETS else {}
+            with torch.no_grad():
+                outs.append([o.float().cpu() for o in zoo_outputs(
+                    net(*zoo_inputs(spec, True, seed + i, dev), **kw))])
+            states.append({k: v.cpu() for k, v in sn_state(net).items()})
+        for a, b in zip(*outs):
+            gap = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            worst = max(worst, gap)
+            if not gap <= ZOO_RTOL:
+                raise AssertionError(f"{name}: card vs CPU {gap:.3e}")
+        for k, v in states[1].items():
+            d = float((states[0][k] - v).abs().max())
+            if not d <= ZOO_SN_ATOL:
+                raise AssertionError(f"{name}.{k}: card vs CPU {d:.3e}")
+    return worst
+
+
+def phase_zoo(seed: int, card: str) -> None:
+    """Phase 10: each zoo module once at its reference width on the card
+    (float32, TF32 off, inference under ``no_grad``): shapes and finite
+    outputs, median ms of 3 after a warm-up, peak memory; the
+    spectral-norm nets once more with ``update_sn=True``; then every
+    module card vs CPU at a small size (``zoo_reference``)."""
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for i, (name, build, spec) in enumerate(zoo_specs()):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = build(False, device="cuda",
+                    generator=torch.Generator().manual_seed(seed + i))
+        args = zoo_inputs(spec, False, seed + i, "cuda")
+        with torch.no_grad():
+            outs = zoo_outputs(net(*args))
+            ms, times = median_ms(lambda: net(*args))
+        for o in outs:
+            if not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"{name}: non-finite output")
+        shapes = [tuple(o.shape) for o in outs]
+        expect = {
+            "MaxFusionModule": ZOO_PARTS[0:1] + ZOO_PARTS[2:],
+            "UNetTA": (1, 3, 800, 1200),
+            "CodeEncoder": (1, 256),
+            "CodeDecoder": (1, 3, 200, 200),
+            "AutoEncoder": (1, 128, 4, 4),
+        }.get(name)
+        if name.startswith("Accumulate"):
+            expect = ZOO_PARTS[0:1] + ZOO_PARTS[2:]
+        if expect is not None and shapes[0] != tuple(expect):
+            raise AssertionError(f"{name}: output {shapes[0]}")
+        in_shapes = [tuple(a.shape) for a in args
+                     if isinstance(a, torch.Tensor)]
+        if expect is None and name not in ("PatchDiscriminator70",
+                                           "NLayerDiscriminator"):
+            if shapes[0][-2:] != in_shapes[0][-2:]:
+                raise AssertionError(f"{name}: output {shapes[0]}")
+        n_params = sum(p.numel() for p in net.parameters())
+        log(f"[zoo] {name} in {in_shapes[0]}: out {shapes[0]}, "
+            f"{n_params / 1e6:.2f} M params, median {ms:.3f} ms "
+            f"({', '.join(f'{t:.3f}' for t in times)}), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB [{card}]")
+        if name in SN_NETS[1:]:
+            before = sn_state(net)
+            with torch.no_grad():
+                net(*args, update_sn=True)
+            after = sn_state(net)
+            same = [k for k in before if torch.equal(before[k], after[k])]
+            if same or len(before) < 5:
+                raise AssertionError(f"{name}: update_sn left {same}")
+            log(f"[zoo] {name} update_sn=True: {len(before)} spectral-norm "
+                f"buffers (u, sigma) updated")
+        del net, args, outs
+    worst = zoo_reference(seed)
+    log(f"[zoo] {len(zoo_specs())} modules card vs CPU at a small size: "
+        f"worst output gap {worst:.3e} of the largest (<= {ZOO_RTOL}); "
+        f"spectral-norm u, sigma within {ZOO_SN_ATOL} [{card}]")
+    log(f"[zoo] phase 10 took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
 
 
 def main(argv=None) -> int:
@@ -1638,6 +1927,9 @@ def main(argv=None) -> int:
 
     # ---- phase 9: the flow path ----
     flow_kernels = phase_flow(args.seed, card)
+
+    # ---- phase 10: the ablation zoo ----
+    phase_zoo(args.seed, card)
 
     kernels = [{
         "name": "rasterize_fim_wim", "route": "cuda",

@@ -24,7 +24,15 @@ So does the FlowNet family: FlowNet2 nests its five nets by path
 (``flownetc``, ``flownets_1``, ``flownets_2``, ``flownets_d``,
 ``flownetfusion``), FlowNetS's bias-free ``up_flow*`` transposed convs
 have no bias leaf, and its batch norms' ``batch_stats`` follow the
-batch-norm rule.
+batch-norm rule. Two layouts of the ablation zoo have rules of their own:
+- flax ``nn.SpectralNorm`` keeps its state in ``batch_stats`` under
+  ``"<layer>/kernel/u"`` and ``"<layer>/kernel/sigma"``, the port's
+  ``SpectralNorm`` as buffers ``u`` and ``sigma``;
+- below a module marked by ``models.common.mark_vmapped`` (the port of an
+  ``nn.vmap`` over P parts), each flax leaf stacks P parts' leaves on a
+  leading axis, and the port's grouped leaf is the P converted leaves
+  concatenated on axis 0 (a ``PartConv(parts=1)`` part keeps its axis of
+  1 in flax).
 Takes and gives plain numpy arrays, so it imports no JAX.
 """
 
@@ -36,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from jafpro_tpu_torch.models.common import SpectralNorm
 from jafpro_tpu_torch.models.parts import PartConv
 
 # the generation modules of ``JAFProPipeline``, under the param tree's names
@@ -48,23 +57,53 @@ _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
              "var": "running_var"}
 
 
+def _kernel_to_weight(mod: nn.Module, a: np.ndarray) -> np.ndarray:
+    """One flax kernel as ``mod``'s weight (PartConv's rule aside)."""
+    if isinstance(mod, nn.ConvTranspose2d):
+        return np.flip(a, (0, 1)).transpose(2, 3, 0, 1)
+    if isinstance(mod, nn.Conv2d):
+        return a.transpose(3, 2, 0, 1)
+    if isinstance(mod, nn.Linear):
+        return a.T
+    raise TypeError(f"no kernel rule for {type(mod).__name__}")
+
+
+def _weight_to_kernel(mod: nn.Module, a: np.ndarray) -> np.ndarray:
+    """Undoes ``_kernel_to_weight``."""
+    if isinstance(mod, nn.ConvTranspose2d):
+        return np.flip(a.transpose(2, 3, 0, 1), (0, 1))
+    if isinstance(mod, nn.Conv2d):
+        return a.transpose(2, 3, 1, 0)
+    if isinstance(mod, nn.Linear):
+        return a.T
+    raise TypeError(f"no weight rule for {type(mod).__name__}")
+
+
 def _convert(mod: nn.Module, leaf: str, a: np.ndarray):
     """(state_dict leaf name, array) for flax leaf ``leaf`` of ``mod``."""
     if isinstance(mod, nn.BatchNorm2d):
         return _BN_NAMES[leaf], a
+    if isinstance(mod, SpectralNorm):
+        layer, name = leaf.rsplit("/kernel/", 1)
+        if layer != mod.layer_name:
+            raise KeyError(f"spectral-norm state {leaf!r} of another layer")
+        return name, a
+    P = getattr(mod, "flax_vmap", 0)
+    if P:
+        if a.shape[0] != P:
+            raise ValueError(f"{leaf}: {a.shape} is not stacked over {P}")
+        if leaf != "kernel":
+            return leaf, a.reshape(-1)
+        return "weight", np.concatenate([
+            _kernel_to_weight(mod, k[0] if mod.flax_part_axis else k)
+            for k in a])
     if leaf != "kernel":
         return leaf, a
-    if isinstance(mod, nn.ConvTranspose2d):
-        return "weight", np.flip(a, (0, 1)).transpose(2, 3, 0, 1)
     if isinstance(mod, PartConv):
         P, kh, kw, cin, cout = a.shape
         return "weight", a.transpose(0, 4, 3, 1, 2).reshape(
             P * cout, cin, kh, kw)
-    if isinstance(mod, nn.Conv2d):
-        return "weight", a.transpose(3, 2, 0, 1)
-    if isinstance(mod, nn.Linear):
-        return "weight", a.T
-    raise TypeError(f"no kernel rule for {type(mod).__name__}")
+    return "weight", _kernel_to_weight(mod, a)
 
 
 def _invert(mod: nn.Module, name: str, a: np.ndarray):
@@ -76,20 +115,23 @@ def _invert(mod: nn.Module, name: str, a: np.ndarray):
         leaf = {v: k for k, v in _BN_NAMES.items()}[name]
         return ("batch_stats" if leaf in ("mean", "var") else "params",
                 leaf, a)
+    if isinstance(mod, SpectralNorm):
+        return "batch_stats", f"{mod.layer_name}/kernel/{name}", a
+    P = getattr(mod, "flax_vmap", 0)
+    if P:
+        if name != "weight":
+            return "params", name, a.reshape(P, -1)
+        ks = [_weight_to_kernel(mod, w) for w in np.split(a, P)]
+        return "params", "kernel", np.stack(
+            [k[None] if mod.flax_part_axis else k for k in ks])
     if name != "weight":
         return "params", name, a
-    if isinstance(mod, nn.ConvTranspose2d):
-        return "params", "kernel", np.flip(a.transpose(2, 3, 0, 1), (0, 1))
     if isinstance(mod, PartConv):
         Pc, cin, kh, kw = a.shape
         P = mod.parts
         return "params", "kernel", a.reshape(P, Pc // P, cin, kh, kw).transpose(
             0, 3, 4, 2, 1)
-    if isinstance(mod, nn.Conv2d):
-        return "params", "kernel", a.transpose(2, 3, 1, 0)
-    if isinstance(mod, nn.Linear):
-        return "params", "kernel", a.T
-    raise TypeError(f"no weight rule for {type(mod).__name__}")
+    return "params", "kernel", _weight_to_kernel(mod, a)
 
 
 def flax_tree(module: nn.Module,

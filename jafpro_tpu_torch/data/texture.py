@@ -4,7 +4,9 @@ Layouts are the JAX package's: parts (B, P, p, p, C), atlas
 (B, 4p, 6p, C), IUV maps (B, S, S, 3) with channel 0 the part id
 (0 = background, 1..24) and channels 1, 2 U and V in 0..255; warped
 images come out channels-last, (B, S, S, C). A texture whose batch is 1
-serves every IUV map of the batch without being copied.
+serves every IUV map of the batch without being copied. The host helpers
+(``unwrap_texture``, ``iuv_to_part_masks``, ``texture_fusion``) are NumPy
+and ``cv2``, which they import when called.
 """
 
 from __future__ import annotations
@@ -15,6 +17,15 @@ import numpy as np
 import torch
 
 from jafpro_tpu_torch.ops.sampling import _interp_tensor
+
+
+def atlas_to_parts(atlas: torch.Tensor, part_size: int = 200) -> torch.Tensor:
+    """(B, 4*p, 6*p, C) -> (B, 24, p, p, C)."""
+    B, H, W, C = atlas.shape
+    rows, cols = H // part_size, W // part_size
+    x = atlas.reshape(B, rows, part_size, cols, part_size, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(
+        B, rows * cols, part_size, part_size, C)
 
 
 def parts_to_atlas(parts: torch.Tensor) -> torch.Tensor:
@@ -76,6 +87,14 @@ def texture_warp_atlas(atlas: torch.Tensor, iuv255: torch.Tensor,
     return torch.where((pid > 0)[..., None], out, torch.zeros_like(out))
 
 
+def texture_warp(parts: torch.Tensor, iuv255: torch.Tensor,
+                 num_parts: int = 24) -> torch.Tensor:
+    """``texture_warp_atlas`` of (B, 24, p, p, C) texture tiles: (B, S, S, C),
+    0 outside the body. Where many IUV maps share a texture, assemble the
+    atlas once with ``parts_to_atlas`` and call ``texture_warp_atlas``."""
+    return texture_warp_atlas(parts_to_atlas(parts), iuv255, num_parts)
+
+
 def build_texture_warp_lut(parts: torch.Tensor,
                            grid: int = 256) -> torch.Tensor:
     """Warp table for integer-valued IUV: (B, P, p, p, C) tiles ->
@@ -108,6 +127,53 @@ def texture_warp_lut(lut: torch.Tensor, iuv255: torch.Tensor) -> torch.Tensor:
     return torch.where((pid > 0)[..., None], out, torch.zeros_like(out))
 
 
+def _part_texels(iuv255: np.ndarray, part: int, tex_size: int):
+    """Rows and columns, in a ``tex_size`` tile, of the texels that the
+    pixels of ``part`` see, and those pixels' coordinates."""
+    sol = float(tex_size) - 1
+    ys, xs = np.where(iuv255[..., 0] == part)
+    ti = ((255 - iuv255[ys, xs, 2]) * sol / 255.0).astype(int)
+    tj = (iuv255[ys, xs, 1] * sol / 255.0).astype(int)
+    return ys, xs, ti, tj
+
+
+def unwrap_texture(image: np.ndarray, iuv255: np.ndarray, tex_size: int = 32,
+                   part_size: int = 200) -> np.ndarray:
+    """Image (S, S, 3) BGR + IUV -> (24, part, part, 3) partial texture
+    tiles, RGB in [0, 1] (the reference's ``get_texture``): a nearest
+    scatter into ``tex_size`` tiles, then a bilinear resize to
+    ``part_size``; a part no pixel sees stays 0."""
+    import cv2
+
+    out = np.zeros((24, part_size, part_size, 3), np.float32)
+    for p in range(1, 25):
+        ys, xs, ti, tj = _part_texels(iuv255, p, tex_size)
+        if len(ys):
+            tile = np.zeros((tex_size, tex_size, 3), np.float64)
+            tile[ti, tj] = image[ys, xs]
+            resized = cv2.resize(tile, (part_size, part_size),
+                                 interpolation=cv2.INTER_LINEAR)
+            out[p - 1] = resized[:, :, ::-1] / 255.0
+    return out
+
+
+def iuv_to_part_masks(iuv255: np.ndarray, tex_size: int = 32,
+                      part_size: int = 200) -> np.ndarray:
+    """Visibility of each part's texture tile: (24, part, part) in {0, 1}."""
+    import cv2
+
+    out = np.zeros((24, part_size, part_size), np.float32)
+    for p in range(1, 25):
+        ys, xs, ti, tj = _part_texels(iuv255, p, tex_size)
+        if len(ys):
+            tile = np.zeros((tex_size, tex_size), np.float64)
+            tile[ti, tj] = 1.0
+            out[p - 1] = (cv2.resize(tile, (part_size, part_size),
+                                     interpolation=cv2.INTER_LINEAR) > 0
+                          ).astype(np.float32)
+    return out
+
+
 def transfer_texture(atlas: np.ndarray, iuv255: np.ndarray,
                      part_size: int = 200) -> np.ndarray:
     """Nearest-texel atlas -> image warp on the host (the reference's
@@ -136,6 +202,29 @@ def masks_to_atlas(part_masks: np.ndarray) -> np.ndarray:
         r, c = i // 6, i % 6
         out[r * p:(r + 1) * p, c * p:(c + 1) * p] = part_masks[i]
     return out
+
+
+def texture_fusion(texture1: np.ndarray, texture2: np.ndarray,
+                   mask1: np.ndarray, mask2: np.ndarray, radius: int = 7):
+    """Greedy two-atlas fusion (the reference's ``Texture_fusion``): keep
+    texture1 wherever it is observed and fill from texture2 only outside
+    a band dilated around their overlap. Textures (H, W, 3) uint8-range,
+    masks (H, W) 0..255. Returns (fused texture, observed mask * 255,
+    area to inpaint * 255)."""
+    import cv2
+
+    m1 = (mask1 / 255).astype(np.uint8)
+    m2 = (mask2 / 255).astype(np.uint8)
+    inter = np.logical_and(m1, m2).astype(np.float64)
+    dilated = cv2.dilate(inter, np.ones((radius, radius), np.uint8)
+                         ).astype(np.uint8)
+    non_overlap = np.subtract(m2, dilated, dtype=np.uint8)
+    complement = (non_overlap[..., None].repeat(3, 2) * texture2).astype(
+        texture1.dtype)
+    observed = m1 + non_overlap * m2
+    inpaint = np.subtract(1, observed, dtype=np.uint8)
+    return (complement + texture1, (observed * 255).astype(np.uint8),
+            (inpaint * 255).astype(np.uint8))
 
 
 def write_gif(path: str, frames: np.ndarray, fps: int = 10) -> str:

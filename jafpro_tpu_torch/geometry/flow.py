@@ -101,3 +101,23 @@ class SMPLFlowEngine:
         """tsf_image (B, C, S, S) = warp(src_img, flow(src -> tgt))."""
         flow = self.cal_flow(src_cam, src_vertices, tgt_cam, tgt_vertices)
         return self.warp_image(src_img, flow)
+
+
+def swap_smpl(src_cam: torch.Tensor, src_shape: torch.Tensor,
+              tgt_smpl: torch.Tensor, first_cam: torch.Tensor,
+              cam_strategy: str = "smooth") -> torch.Tensor:
+    """Motion-transfer SMPL recomposition (the reference's ``swap_smpl``):
+    the target's pose, the source's shape and a camera by strategy —
+    "smooth": the source camera moved by the target's xy drift from the
+    first frame; "source": the source camera; else the target's.
+    tgt_smpl (B, 85) = [cam (3), pose (72), shape (10)] -> (B, 85)."""
+    tgt_cam = tgt_smpl[:, 0:3]
+    pose = tgt_smpl[:, 3:75]
+    if cam_strategy == "smooth":
+        delta_xy = tgt_cam[:, 1:] - first_cam[:, 1:]
+        cam = torch.cat([src_cam[:, :1], src_cam[:, 1:] + delta_xy], dim=1)
+    elif cam_strategy == "source":
+        cam = src_cam
+    else:
+        cam = tgt_cam
+    return torch.cat([cam, pose, src_shape], dim=1)

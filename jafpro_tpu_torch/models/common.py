@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jafpro_tpu_torch.device import resolve_device
 from jafpro_tpu_torch.ops.sampling import resize_bilinear
 
 
@@ -25,16 +26,46 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, bias: bool = True, groups: int = 1,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 dilation: int = 1):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding,
+                         bias=bias, groups=groups, dilation=dilation)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor,
+                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``weight``: use it in place of ``self.weight`` (a spectrally
+        normalised copy, say)."""
+        dt = self.compute_dtype or x.dtype
+        w = self.weight if weight is None else weight
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), w.to(dt), b, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that computes in ``compute_dtype`` (None: the
+    input's dtype), like flax ``nn.ConvTranspose``. torch's ``padding=p``
+    crops p from every side of the VALID output, which is the reference's
+    ``ConvTranspose2d(k, s, p)``; flax's ``"SAME"`` at k 3, s 2 is
+    ``padding=0`` then ``crop_end=1`` (the last row and column dropped)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding: int = 0, bias: bool = True, groups: int = 1,
+                 crop_end: int = 0,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
                          bias=bias, groups=groups)
+        self.crop_end = crop_end
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or x.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
-                        self.padding, 1, self.groups)
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), b, self.stride,
+                               self.padding, 0, self.groups)
+        c = self.crop_end
+        return y[..., :y.shape[-2] - c, :y.shape[-1] - c] if c else y
 
 
 class Linear(nn.Linear):
@@ -69,18 +100,20 @@ class ConvLReLU(nn.Module):
 
 
 class UpsampleConvLReLU(nn.Module):
-    """Bilinear resize (align_corners) to a fixed size, concat the skip,
-    conv + LeakyReLU (the reference's ``Upsampler_SE``)."""
+    """Bilinear resize (align_corners) to a fixed size (None: the skip's),
+    concat the skip, conv + LeakyReLU (the reference's ``Upsampler_SE``)."""
 
-    def __init__(self, cin: int, cskip: int, features: int, output_size: int,
-                 compute_dtype=None):
+    def __init__(self, cin: int, cskip: int, features: int,
+                 output_size: Optional[int], compute_dtype=None):
         super().__init__()
         self.output_size = output_size
         self.ConvLReLU_0 = ConvLReLU(cin + cskip, features,
                                      compute_dtype=compute_dtype)
 
     def forward(self, x, skip):
-        x = resize_bilinear(x, (self.output_size, self.output_size), True)
+        size = ((self.output_size, self.output_size) if self.output_size
+                else tuple(skip.shape[-2:]))
+        x = resize_bilinear(x, size, True)
         return self.ConvLReLU_0(torch.cat([x, skip], dim=1))
 
 
@@ -121,37 +154,47 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
 
 class SampleLayerNorm(nn.Module):
     """The CRN's LayerNorm: per-sample statistics over all of (C, H, W)
-    with Bessel-corrected std, (x - mean) / (std + eps), per-channel affine."""
+    with Bessel-corrected std, (x - mean) / (std + eps), per-channel affine.
+    ``groups`` P > 1: P parts packed part-major in the channels, each with
+    statistics of its own (P independent norms, as a vmap over parts)."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, groups: int = 1):
         super().__init__()
         self.eps = eps
-        self.gamma = nn.Parameter(torch.empty(features))
-        self.beta = nn.Parameter(torch.zeros(features))
+        self.groups = groups
+        self.gamma = nn.Parameter(torch.empty(groups * features))
+        self.beta = nn.Parameter(torch.zeros(groups * features))
 
     def forward(self, x):
         x32 = x.float()
         dims = tuple(range(1, x.ndim))
-        n = math.prod(x.shape[1:])
+        if self.groups > 1:
+            x32 = x32.reshape(x.shape[0], self.groups, -1)
+            dims = (2,)
+        n = math.prod(x32.shape[d] for d in dims)
         mean = x32.mean(dim=dims, keepdim=True)
         var = torch.square(x32 - mean).sum(dim=dims, keepdim=True) / (n - 1)
-        y = (x32 - mean) / (torch.sqrt(var) + self.eps)
+        y = ((x32 - mean) / (torch.sqrt(var) + self.eps)).reshape(x.shape)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         return (y * self.gamma.view(shape) + self.beta.view(shape)).to(x.dtype)
 
 
 class ConvBlock(nn.Module):
-    """n_repeats x [conv3x3, SampleLayerNorm, LeakyReLU(0.01)]."""
+    """n_repeats x [conv3x3, SampleLayerNorm, LeakyReLU(0.01)]; ``groups``
+    P > 1 runs P independent blocks over part-major packed channels
+    (``cin`` and ``features`` per part)."""
 
     def __init__(self, n_repeats: int, cin: int, features: int,
-                 compute_dtype=None):
+                 compute_dtype=None, groups: int = 1):
         super().__init__()
         self.n_repeats = n_repeats
+        P = groups
         for i in range(n_repeats):
             self.add_module(f"Conv_{i}", Conv2d(
-                cin if i == 0 else features, features, 3, padding=1,
-                compute_dtype=compute_dtype))
-            self.add_module(f"SampleLayerNorm_{i}", SampleLayerNorm(features))
+                P * (cin if i == 0 else features), P * features, 3,
+                padding=1, groups=P, compute_dtype=compute_dtype))
+            self.add_module(f"SampleLayerNorm_{i}", SampleLayerNorm(
+                features, groups=P))
 
     def forward(self, x):
         for i in range(self.n_repeats):
@@ -159,6 +202,55 @@ class ConvBlock(nn.Module):
             x = getattr(self, f"SampleLayerNorm_{i}")(x)
             x = F.leaky_relu(x, 0.01)
         return x
+
+
+def _l2_normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return x * torch.rsqrt(torch.sum(x * x) + eps)
+
+
+class SpectralNorm(nn.Module):
+    """flax ``nn.SpectralNorm``'s state and arithmetic for one conv's
+    kernel: ``u`` (1, cout) and ``sigma`` () as buffers. Each call runs one
+    power-iteration step from ``u`` on the kernel as flax lays it out,
+    (k*k*cin, cout), in float32 with eps 1e-12 (``u`` and ``v`` carry no
+    gradient), and returns the weight divided by sigma = v W u^T; with
+    ``update`` it also stores the new ``u`` and ``sigma``. flax keeps them
+    in ``batch_stats`` under ``"<layer>/kernel/u"`` and
+    ``"<layer>/kernel/sigma"``; ``layer_name`` is that ``<layer>``."""
+
+    def __init__(self, features: int, layer_name: str = "Conv_0",
+                 eps: float = 1e-12):
+        super().__init__()
+        self.layer_name = layer_name
+        self.eps = eps
+        self.register_buffer("u", torch.zeros(1, features))
+        self.register_buffer("sigma", torch.ones(()))
+
+    def init_state_(self, generator: torch.Generator) -> None:
+        """flax's initial state: u ~ N(0, 1), sigma = 1."""
+        with torch.no_grad():
+            self.u.copy_(torch.randn(self.u.shape, generator=generator))
+            self.sigma.fill_(1.0)
+
+    def forward(self, weight: torch.Tensor,
+                update: bool = False) -> torch.Tensor:
+        """weight (cout, cin, k, k) -> the spectrally normalised weight."""
+        w = weight.float().permute(2, 3, 1, 0).reshape(-1, weight.shape[0])
+        with torch.no_grad():
+            v = _l2_normalize(self.u @ w.t(), self.eps)
+            u = _l2_normalize(v @ w, self.eps)
+        sigma = ((v @ w) @ u.t())[0, 0]
+        if update:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.sigma.copy_(sigma)
+        return weight.float() / torch.where(sigma != 0, sigma,
+                                            torch.ones_like(sigma))
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflection padding of the two spatial axes of (B, C, H, W)."""
+    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
 
 
 class ReflectConv(nn.Module):
@@ -172,8 +264,7 @@ class ReflectConv(nn.Module):
                              compute_dtype=compute_dtype)
 
     def forward(self, x):
-        p = self.pad
-        return self.Conv_0(F.pad(x, (p, p, p, p), mode="reflect"))
+        return self.Conv_0(reflect_pad(x, self.pad))
 
 
 def _truncated_normal_(t: torch.Tensor, std: float,
@@ -199,8 +290,9 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 # OIHW / (cin, cout, kh, kw): flax counts cin * kh * kw
-                cin = m.weight.shape[
-                    0 if isinstance(m, nn.ConvTranspose2d) else 1]
+                cin = (m.weight.shape[0] // m.groups
+                       if isinstance(m, nn.ConvTranspose2d)
+                       else m.weight.shape[1])
                 fan_in = cin * m.weight.shape[2] * m.weight.shape[3]
                 _truncated_normal_(m.weight, math.sqrt(1.0 / fan_in) / trunc,
                                    generator)
@@ -214,4 +306,35 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(m, SampleLayerNorm):
                 m.gamma.copy_(torch.rand(m.gamma.shape, generator=generator))
                 m.beta.zero_()
+            if hasattr(m, "init_state_"):
+                m.init_state_(generator)
+    return module
+
+
+def place(module: nn.Module, device,
+          generator: Optional[torch.Generator]) -> None:
+    """The last step of an entry point's constructor: onto ``device`` (the
+    card unless the caller asks for the CPU; raises when it names CUDA and
+    there is none), with flax's initialisers drawn from ``generator``
+    (seed 0 when None). ``device=None`` marks a child, which its parent
+    initialises and places."""
+    if device is None:
+        return
+    dev = resolve_device(device)
+    init_params_(module, generator if generator is not None
+                 else torch.Generator().manual_seed(0))
+    module.to(dev)
+
+
+def mark_vmapped(module: nn.Module, parts: int,
+                 part_axis: bool = False) -> nn.Module:
+    """Mark ``module``'s subtree as the port of a flax ``nn.vmap`` over
+    ``parts`` with per-part parameters: each flax leaf there is the stack,
+    on a new leading axis, of one part's leaf, and the port holds the
+    ``parts`` converted leaves concatenated on axis 0 (grouped convs,
+    grouped norms; ``bridge.py``). ``part_axis``: each part's kernel is
+    that of a ``PartConv(parts=1)`` and keeps its axis of 1."""
+    for m in module.modules():
+        m.flax_vmap = parts
+        m.flax_part_axis = part_axis
     return module

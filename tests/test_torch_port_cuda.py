@@ -280,3 +280,32 @@ def test_flow_step_card_vs_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke.flow_reference(0)
+
+
+def test_spectral_norm_conv_card_vs_cpu(cuda):
+    """The flax-style spectral-norm conv (EdgeConnect's ``_SNConv``) from
+    the same seeded weights and state on the card and on the CPU, with
+    ``update_sn``: outputs within 1e-4 of the largest, the stored ``u``
+    and ``sigma`` within 1e-5, and the state moved by the update."""
+    from jafpro_tpu_torch.models.ablations import _SNConv
+    from jafpro_tpu_torch.models.common import init_params_
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        -1, 1, (2, 32, 40, 40)).astype(np.float32))
+    outs, states = [], []
+    for dev in (cuda, torch.device("cpu")):
+        conv = init_params_(_SNConv(32, 64, 4, 2, 1, use_bias=False,
+                                    spectral=True),
+                            torch.Generator().manual_seed(0)).to(dev)
+        u0 = conv.SpectralNorm_0.u.clone()
+        for _ in range(2):
+            y = conv(x.to(dev), update_sn=True)
+        assert not torch.equal(conv.SpectralNorm_0.u, u0)
+        outs.append(y.cpu())
+        states.append((conv.SpectralNorm_0.u.cpu(),
+                       conv.SpectralNorm_0.sigma.cpu()))
+    assert (outs[0] - outs[1]).abs().max() <= 1e-4 * outs[1].abs().max()
+    for a, b in zip(*states):
+        assert (a - b).abs().max().item() <= 1e-5
