@@ -121,6 +121,35 @@ Phases, each of which raises on failure (nothing is caught):
    ``sigma`` within 1e-5. No module of the zoo launches a kernel of
    ``csrc/``.
 
+11. Data parallelism (``jafpro_tpu_torch/parallel``): ranks started with
+   ``parallel.spawn`` (a ``file://`` rendezvous in a temporary directory,
+   removed at the end; the ranks load phase 2's builds). (a) NCCL at world
+   1 on the card: one stage-4 SGD step at 64 px (phase 7's set-up, global
+   batch 4 whose last face box is empty) through ``data_parallel_jit``
+   against the same step without a mesh. (b) Two gloo ranks sharing the
+   card: the stage-1 and stage-4 steps at global batch 4 (2 per rank)
+   against one process at batch 4; replicas bitwise equal, metrics equal
+   on both ranks, the rasterizer once per rank per stage-4 step on its 2
+   poses. Both within ``TRAIN_METRIC_RTOL`` / ``TRAIN_UPDATE_RTOL``. (c)
+   Stage 4 at ``Config()`` widths in bfloat16, global batch 4 as 2 ranks x
+   2 on the one card, from phase 7's packed interval records through the
+   shard reader (``cli._raw_batch_source``), 1 warm-up and 3 timed steps:
+   finite losses, exactly the trained modules moved (``bg`` bitwise
+   unchanged), replicas bitwise equal, one launch per rank per step;
+   per-rank s/step and peak memory (two ranks share one card: a
+   correctness run, not a scaling number). (d) Phase 6's four clips served
+   by the 2 ranks (``cli.serve_share``, one clip per batch, frames kept in
+   memory), one launch per batch per rank, in bfloat16 (the CLI's dtype)
+   and in float32: each served clip must be within 1 uint8 step of phase
+   6's one process on that clip alone (in bfloat16 served alone through
+   the same serving path, one clip per batch: the call form ``gen(clip)``
+   hands the generator the same values with other strides on its size-1
+   axes, and in bfloat16 that alone moves a frame by several steps); then
+   ``generate_batch(clips, mesh)`` of two clips in float32 (one per rank)
+   against per-clip generation within 1e-4. (e) With two or more cards,
+   (b) over NCCL, one card per rank; with one, a line says it was not
+   run.
+
 Phase 3 also runs the kernel with its depth output on every scene (depth
 within 1e-6 relative of the plain version's, 0 at background; whether it
 is bitwise is printed), checks the gradient's recompute of weights and
@@ -139,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import os
 import statistics
@@ -603,10 +633,13 @@ def serve_pack(cfg, engine, seed: int, pack_dir: str, clips_per_batch: int,
     return vids, load, gen, written
 
 
-def phase_serve(seed: int, engine, card: str) -> None:
+def phase_serve(seed: int, engine, card: str) -> dict:
     """Phase 6: pack four clips, serve them in two batches through the
     CLI's loop (float32, then the CLI's default bfloat16), check the
-    batches against per-clip generation, and score two of them."""
+    batches against per-clip generation, and score two of them. Returns
+    each clip's frames generated alone in one process, by dtype ({dtype:
+    {vid: {stream: uint8}}}; float32 through ``gen(clip)``, bfloat16 served
+    alone, one clip per batch), for phase 11's ranks."""
     from jafpro_tpu_torch import cli
     from jafpro_tpu_torch.config import Config
     from jafpro_tpu_torch.evaluate import evaluate_video
@@ -627,8 +660,10 @@ def phase_serve(seed: int, engine, card: str) -> None:
             cfg, engine, seed, pack_dir, per_batch, "float32", card)
         clips = load(vids)
         # each served clip against the same generator on that clip alone
-        d = max(u8_diff(served[vid], gen(clip))
-                for vid, clip in zip(vids, clips))
+        # (kept: phase 11's ranks are held to it)
+        alone = {vid: {k: v.cpu().numpy() for k, v in gen(clip).items()}
+                 for vid, clip in zip(vids, clips)}
+        d = max(u8_diff(served[vid], alone[vid]) for vid in vids)
         log(f"[serve] served (uint8) vs per-clip generation: max {d} LSB")
         if not d <= 1:
             raise AssertionError("a served batch disagrees with per-clip "
@@ -648,11 +683,26 @@ def phase_serve(seed: int, engine, card: str) -> None:
                                  "generation")
         del gen, fgen, batch
         # the dtype `cli infer` serves in (Config's default)
-        served16 = serve_pack(Config(), engine, seed, pack_dir, per_batch,
-                              "bfloat16", card)[3]
+        _, load16, gen16, served16 = serve_pack(
+            Config(), engine, seed, pack_dir, per_batch, "bfloat16", card)
         log(f"[serve] bfloat16 vs float32 served: max "
             f"{max(u8_diff(served16[v], served[v]) for v in vids)} LSB")
-        del served16
+        # each clip served alone (one per batch) in one process, which
+        # phase 11's ranks are held to; beside it the same clip through
+        # gen16(clip), whose inputs carry other strides on their size-1
+        # axes: in bfloat16 that alone moves a frame by several steps
+        one = cli.generate_group(gen16)
+        clips16 = load16(vids)
+        alone16 = {vid: {k: v[0].cpu().numpy()
+                         for k, v in one((vid,), [c]).items()}
+                   for vid, c in zip(vids, clips16)}
+        called = {vid: gen16(c) for vid, c in zip(vids, clips16)}
+        log(f"[serve] bfloat16 each clip served alone vs served {per_batch} "
+            f"per batch: max "
+            f"{max(u8_diff(alone16[v], served16[v]) for v in vids)} LSB; vs "
+            f"gen(clip): max "
+            f"{max(u8_diff(alone16[v], called[v]) for v in vids)} LSB")
+        del gen16, served16, called
 
     # score with the TF32 settings `cli evaluate` runs under (PyTorch's
     # defaults); evaluate_video turns TF32 off itself
@@ -686,6 +736,7 @@ def phase_serve(seed: int, engine, card: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"[serve] phase 6 took {time.perf_counter() - t0:.1f} s")
+    return {"float32": alone, "bfloat16": alone16}
 
 
 def pack_train_records(cfg, seed: int, stage: int, n: int, clip_verts,
@@ -748,6 +799,21 @@ def moved_modules(before: dict, pipe) -> tuple:
     return moved, same
 
 
+def count_poses(engine) -> list:
+    """Record the poses of each ``render_fim_wim`` call of ``engine`` (one
+    rasterizer launch each) into the returned list; ``del
+    engine.render_fim_wim`` undoes it."""
+    poses: list = []
+    render = engine.render_fim_wim
+
+    def counted(cam, v):
+        poses.append(cam.shape[0])
+        return render(cam, v)
+
+    engine.render_fim_wim = counted
+    return poses
+
+
 def train_stage(cfg, stage: int, shard_dir: str, engine, verts, seed: int,
                 card: str) -> dict:
     """One stage as ``cli train --shards`` runs it: 1 warm-up and 3 timed
@@ -772,14 +838,7 @@ def train_stage(cfg, stage: int, shard_dir: str, engine, verts, seed: int,
     rng = np.random.RandomState(seed)
     next_raw, close = cli._raw_batch_source(args, cfg, rng, verts)
     before = snapshot(pipe)
-    poses = []
-    render = engine.render_fim_wim
-
-    def counted(cam, v):
-        poses.append(cam.shape[0])
-        return render(cam, v)
-
-    engine.render_fim_wim = counted
+    poses = count_poses(engine)
     torch.cuda.reset_peak_memory_stats()
     times, launches, losses = [], [], []
     try:
@@ -825,16 +884,16 @@ def train_stage(cfg, stage: int, shard_dir: str, engine, verts, seed: int,
     return {"s_step": s_step, "peak": peak, "launches": sum(launches)}
 
 
-def sgd_step_on(dev: str, stage: int, seed: int, batch: int) -> tuple:
-    """One SGD (lr 1e-3) step of ``stage`` at 64 px, parts of 16, 2 refs,
-    float32 on ``dev``: (before, after (JAX trees), metrics)."""
-    from jafpro_tpu_torch import cli
-    from jafpro_tpu_torch.bridge import jax_params
+def sgd_setup(dev, seed: int, batch: int, ragged: bool = False) -> tuple:
+    """(pipeline, batch (numpy)) of the 64 px SGD steps: parts of 16, 2
+    refs, float32 on ``dev``, seeded weights and a seeded batch on the 6x6
+    quad mesh. ``ragged`` empties the last sample's face box, so that on 2
+    ranks the first holds two faces and the second one."""
     from jafpro_tpu_torch.config import Config
     from jafpro_tpu_torch.geometry.flow import SMPLFlowEngine
     from jafpro_tpu_torch.pipeline import JAFProPipeline
     from jafpro_tpu_torch.train.common import (
-        TrainState, synthetic_batch, synthetic_quad_mesh, to_device)
+        synthetic_batch, synthetic_quad_mesh)
 
     verts, faces = synthetic_quad_mesh(6)
     cfg = Config(image_size=64, part_size=16, maximum_ref_frames=2,
@@ -847,6 +906,19 @@ def sgd_step_on(dev: str, stage: int, seed: int, batch: int) -> tuple:
                         num_verts=verts.shape[0], num_targets=2)
     b["prev_verts"] = np.tile(verts[None], (batch, 1, 1))
     b["tgt_verts"] = b["prev_verts"] + np.float32([0.05, 0.0, 0.0])
+    if ragged:
+        b["face_bbox"][-1, 1] = b["face_bbox"][-1, 0]
+    return pipe, b
+
+
+def sgd_step_on(dev: str, stage: int, seed: int, batch: int) -> tuple:
+    """One SGD (lr 1e-3) step of ``stage`` of ``sgd_setup`` on ``dev``:
+    (before, after (JAX trees), metrics)."""
+    from jafpro_tpu_torch import cli
+    from jafpro_tpu_torch.bridge import jax_params
+    from jafpro_tpu_torch.train.common import TrainState, to_device
+
+    pipe, b = sgd_setup(dev, seed, batch)
     before = jax_params(pipe)
     step, lrs = cli.make_step(pipe, stage)
     state = TrainState(pipe, lrs,
@@ -1249,7 +1321,9 @@ def median_cuda_ms(fn, reps: int = 5, iters: int = 3) -> float:
 def check_corr_scene(name: str, shape, md: int, s2: int, gen) -> dict:
     """Forward and backward kernels against the plain version on one
     scene, float32 and bfloat16; raises on a mismatch."""
-    from jafpro_tpu_torch.ops import correlation as OC
+    # the module: ``jafpro_tpu_torch.ops.correlation`` names the function,
+    # as the JAX package's ``ops`` does
+    OC = importlib.import_module("jafpro_tpu_torch.ops.correlation")
 
     dev = torch.device("cuda")
     for dt in (torch.float32, torch.bfloat16):
@@ -1325,7 +1399,9 @@ def time_corr(shape, md: int, s2: int, gen, card: str) -> dict:
     forward and forward + backward, beside the bound and its share; the
     forward at FlowNet2's clip shape; and what a channels-last copy of
     both inputs would cost."""
-    from jafpro_tpu_torch.ops import correlation as OC
+    # the module: ``jafpro_tpu_torch.ops.correlation`` names the function,
+    # as the JAX package's ``ops`` does
+    OC = importlib.import_module("jafpro_tpu_torch.ops.correlation")
 
     dev = torch.device("cuda")
     c1 = torch.randn(FLOWNET2_CORR_SHAPE, generator=gen).to(dev)
@@ -1851,6 +1927,386 @@ def phase_zoo(seed: int, card: str) -> None:
         f"[{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: data parallelism (ranks of jafpro_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+DP_TIMEOUT_S = 300   # bound on each collective of a rank
+
+
+def float32_on_rank() -> None:
+    """A rank starts with PyTorch's TF32 defaults; float32 means float32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def trained_params(pipe, names) -> dict:
+    """A copy of modules ``names`` of ``pipe``, by ``state_dict`` name."""
+    return {f"{n}.{k}": v.detach().clone() for n in names
+            for k, v in getattr(pipe, n).state_dict().items()}
+
+
+def update_rel_l2(before: dict, after: dict, ref_after: dict) -> tuple:
+    """Per module: the L2 norm of (update - reference update) over that of
+    the reference update; and the modules that moved but not in the
+    reference."""
+    err: dict = {}
+    for k, p0 in before.items():
+        du = after[k].double() - p0.double()
+        dr = ref_after[k].double() - p0.double()
+        e = err.setdefault(k.split(".")[0], [0.0, 0.0])
+        e[0] += float(torch.square(du - dr).sum())
+        e[1] += float(torch.square(dr).sum())
+    return ({m: (d / n) ** 0.5 for m, (d, n) in err.items() if n > 0},
+            sorted(m for m, (d, n) in err.items() if n == 0 and d > 0))
+
+
+def state_digest(module) -> str:
+    """A hash of every parameter and buffer of ``module``, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, v in sorted(module.state_dict().items()):
+        h.update(name.encode())
+        h.update(v.detach().reshape(-1).contiguous().cpu().view(
+            torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def dp_sgd_rank(mesh, stages, seed: int, batch: int) -> dict:
+    """On one rank: one SGD step of each of ``stages`` (``sgd_setup``, the
+    ragged global batch of ``batch``) through ``data_parallel_jit``, from
+    the same seeded weights each time; rank 0 then takes the same step
+    without a mesh on the whole batch and compares the updates."""
+    from jafpro_tpu_torch import cli
+    from jafpro_tpu_torch.geometry import rasterizer as R
+    from jafpro_tpu_torch.parallel import data_parallel_jit, replicate
+    from jafpro_tpu_torch.train.common import TrainState, to_device
+
+    float32_on_rank()
+    pipe, b = sgd_setup(mesh.device, seed, batch, ragged=True)
+    replicate(mesh, pipe)
+    start = {k: v.clone() for k, v in pipe.state_dict().items()}
+    poses = count_poses(pipe.flow_engine)
+    sgd = lambda ps, lr: torch.optim.SGD(ps, 1e-3)  # noqa: E731
+    out = {}
+    for stage in stages:
+        pipe.load_state_dict(start)
+        step, lrs = cli.make_step(pipe, stage)
+        before = trained_params(pipe, lrs)
+        sync(mesh.device)
+        R.rasterize_fim_wim.launches = 0
+        poses.clear()
+        _, m = data_parallel_jit(step, mesh)(
+            TrainState(pipe, lrs, optimizer=sgd), b)
+        sync(mesh.device)
+        r = {"metrics": {k: float(v) for k, v in m.items()},
+             "launches": R.rasterize_fim_wim.launches, "poses": list(poses),
+             "digest": state_digest(pipe)}
+        if mesh.rank == 0:
+            after = trained_params(pipe, lrs)
+            pipe.load_state_dict(start)
+            _, m_ref = step(TrainState(pipe, lrs, optimizer=sgd),
+                            to_device(b, mesh.device))
+            r["ref_metrics"] = {k: float(v) for k, v in m_ref.items()}
+            r["update_rel"], r["moved_alone"] = update_rel_l2(
+                before, after, trained_params(pipe, lrs))
+        out[stage] = r
+    del pipe.flow_engine.render_fim_wim
+    return out
+
+
+def check_dp_sgd(what: str, ranks: list, stages, batch: int,
+                 card: str) -> int:
+    """Phase 11's checks of ``dp_sgd_rank``'s results; returns the
+    rasterizer launches of the sharded steps."""
+    world = len(ranks)
+    launches = 0
+    for stage in stages:
+        rs = [r[stage] for r in ranks]
+        r0 = rs[0]
+        worst_m = max(abs(r0["metrics"][k] - v) / max(abs(v), 1e-12)
+                      for k, v in r0["ref_metrics"].items())
+        rel = r0["update_rel"]
+        log(f"[dp] {what}: stage {stage} SGD step (64 px, global batch "
+            f"{batch}, {batch // world} per rank, float32, TF32 off) vs one "
+            f"process at batch {batch}: metrics max rel {worst_m:.3e} "
+            f"(tolerance {TRAIN_METRIC_RTOL}); update rel L2 per module "
+            + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rel.items()))
+            + f" (tolerance {TRAIN_UPDATE_RTOL}); rasterize_fim_wim "
+            f"launches per rank {[r['launches'] for r in rs]}, poses "
+            f"{[r['poses'] for r in rs]}; replicas bitwise equal "
+            f"{len({r['digest'] for r in rs}) == 1} [{card}]")
+        if set(r0["metrics"]) != set(r0["ref_metrics"]) or not (
+                worst_m <= TRAIN_METRIC_RTOL
+                and max(rel.values()) <= TRAIN_UPDATE_RTOL):
+            raise AssertionError(f"{what}: the sharded stage-{stage} step "
+                                 "disagrees with one process")
+        if r0["moved_alone"]:
+            raise AssertionError(f"{what}: {r0['moved_alone']} moved in "
+                                 "the sharded step only")
+        if len({r["digest"] for r in rs}) != 1:
+            raise AssertionError(f"{what}: the replicas differ")
+        if any(r["metrics"] != r0["metrics"] for r in rs):
+            raise AssertionError(f"{what}: the ranks logged other metrics")
+        want = (1, [batch // world]) if stage == 4 else (0, [])
+        if any((r["launches"], r["poses"]) != want for r in rs):
+            raise AssertionError(f"{what}: stage {stage} launched the "
+                                 "rasterizer other than once per rank on "
+                                 "its own poses")
+        launches += sum(r["launches"] for r in rs)
+    return launches
+
+
+def dp_reference(seed: int, stages=(4,), card: str = "") -> int:
+    """Check (b) of phase 11 alone: two gloo ranks sharing ``cuda:0`` take
+    the 64 px SGD steps of ``stages`` at global batch
+    ``TRAIN_REF_BATCH[4]``, held to one process; returns the rasterizer
+    launches of the sharded steps."""
+    from jafpro_tpu_torch.parallel import spawn
+
+    B = TRAIN_REF_BATCH[4]
+    with tempfile.TemporaryDirectory() as root:
+        ranks = spawn(dp_sgd_rank, 2, backend="gloo",
+                      devices=["cuda:0", "cuda:0"], args=(stages, seed, B),
+                      workdir=root, timeout_s=DP_TIMEOUT_S)
+    return check_dp_sgd("(b) gloo, 2 ranks on one card", ranks, stages, B,
+                        card)
+
+
+def dp_card_rank(mesh, seed: int, shard_dir: str, pack_dir: str, faces,
+                 verts, sgd_batch: int) -> dict:
+    """On one of two ranks that share the card (gloo): the 64 px SGD
+    steps of stages 1 and 4 (``dp_sgd_rank``); stage 4 at ``Config()``
+    widths in bfloat16 from the packed records (1 warm-up and 3 timed
+    steps of global batch 4); then serving the packed clips (this rank's
+    share, one clip per batch) in bfloat16 and in float32, and
+    ``generate_batch`` over the ranks in float32 (one clip per rank)."""
+    import argparse as _argparse
+
+    from jafpro_tpu_torch import cli
+    from jafpro_tpu_torch.config import Config
+    from jafpro_tpu_torch.geometry import rasterizer as R
+    from jafpro_tpu_torch.geometry.flow import SMPLFlowEngine
+    from jafpro_tpu_torch.infer import VideoGenerator, stack_clips
+    from jafpro_tpu_torch.parallel import (
+        data_parallel_jit, replicate, shard_batch)
+    from jafpro_tpu_torch.pipeline import JAFProPipeline
+    from jafpro_tpu_torch.train.common import TrainState, apply_curriculum
+
+    out = {"sgd": dp_sgd_rank(mesh, (1, 4), seed, sgd_batch)}
+    dev = mesh.device
+    cfg = Config()   # bfloat16, batch 4: the CLI's defaults
+    engine = SMPLFlowEngine(faces=faces, image_size=cfg.image_size)
+
+    # ---- (c) stage 4 at full width from the packed records ----
+    pipe = JAFProPipeline(cfg, flow_engine=engine, device=dev,
+                          generator=torch.Generator().manual_seed(seed))
+    replicate(mesh, pipe)
+    start = {k: v.clone() for k, v in pipe.state_dict().items()}
+    step, lrs = cli.make_step(pipe, 4)
+    step = data_parallel_jit(step, mesh)
+    state = TrainState(pipe, lrs)
+    args = _argparse.Namespace(shards=shard_dir, stage=4, seed=seed,
+                               synthetic=False)
+    rng = np.random.RandomState(seed)
+    next_raw, close = cli._raw_batch_source(args, cfg, rng, verts,
+                                            in_order=True)
+    before = snapshot(pipe)
+    poses = count_poses(engine)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, launches, losses = [], [], []
+    try:
+        for _ in range(4):
+            batch = shard_batch(mesh, apply_curriculum(
+                dict(next_raw()), 4, rng, cfg.maximum_ref_frames))
+            sync(dev)
+            R.rasterize_fim_wim.launches = 0
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+            launches.append(R.rasterize_fim_wim.launches)
+            losses.append({k: float(v) for k, v in m.items()})
+    finally:
+        close()
+        del engine.render_fim_wim
+    moved, same = moved_modules(before, pipe)
+    out["full"] = {"times": times, "launches": launches, "poses": poses,
+                   "losses": losses, "moved": moved, "same": same,
+                   "lrs": set(lrs), "digest": state_digest(pipe),
+                   "peak": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    del state, before
+    torch.cuda.empty_cache()   # the two ranks share the card's memory
+
+    # ---- (d) serving this rank's share of the packed clips ----
+    pipe.load_state_dict(start)
+    del start
+    vids, load = cli.open_clip_source(cfg, cfg.maximum_ref_frames, pack_dir)
+    groups = cli.group_items(vids, 1)
+
+    def serve(gen) -> dict:
+        written: dict = {}
+
+        def write(group, result):
+            written.update(cli.fetch_clips(group, result, cli.STREAMS))
+
+        R.rasterize_fim_wim.launches = 0
+        stats = cli.serve_share(groups, load, cli.generate_group(gen),
+                                write, mesh)
+        return {"written": written, "stats": stats,
+                "launches": R.rasterize_fim_wim.launches,
+                "mine": len(groups[mesh.rank::mesh.world])}
+
+    out["serve"] = {"bfloat16": serve(cli.serving_generator(pipe, cfg))}
+    del pipe
+    torch.cuda.empty_cache()
+    float32_on_rank()
+    cfg32 = Config(compute_dtype="float32")
+    pipe32 = JAFProPipeline(cfg32, flow_engine=engine, device=dev,
+                            generator=torch.Generator().manual_seed(seed))
+    replicate(mesh, pipe32)
+    out["serve"]["float32"] = serve(cli.serving_generator(pipe32, cfg32))
+
+    # ---- (d) generate_batch over the ranks, float32: one clip each ----
+    fgen = VideoGenerator(pipe32, frame_batch=cfg.num_frames,
+                          flow_mode="batch")
+    clips = load(vids[:mesh.world])
+    whole = fgen.generate_batch(stack_clips(clips), mesh)
+    d = 0.0
+    for i in range(mesh.rank, len(clips), mesh.world):
+        d = max(d, max_diff({k: v[i] for k, v in whole.items()},
+                            fgen(clips[i])))
+    out["batch"] = {"shape": tuple(whole["final"].shape), "diff": d}
+    return out
+
+
+def phase_dp(seed: int, clip: dict, faces: np.ndarray, alone: dict,
+             card: str) -> int:
+    """Phase 11: data parallelism. Returns the rasterizer launches of the
+    ranks' main-path steps and batches."""
+    from jafpro_tpu_torch.config import Config
+    from jafpro_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = Config()
+    B = TRAIN_REF_BATCH[4]
+    with tempfile.TemporaryDirectory() as root:
+        # (a) NCCL at world 1
+        ranks = spawn(dp_sgd_rank, 1, backend="nccl", devices=["cuda:0"],
+                      args=((4,), seed, B), workdir=root,
+                      timeout_s=DP_TIMEOUT_S)
+        launches = check_dp_sgd("(a) NCCL, world 1", ranks, (4,), B, card)
+
+        # (b)-(d) two gloo ranks on the one card
+        shard_dir = os.path.join(root, "interval")
+        os.makedirs(shard_dir)
+        pack_train_records(cfg, seed + 20, 3, 8, clip["verts"],
+                           clip["cams"], os.path.join(
+                               shard_dir, "train-interval-00000.shard"))
+        pack_dir = os.path.join(root, "clips")
+        pack_clips(seed, 4, cfg.num_frames, cfg.maximum_ref_frames,
+                   cfg.image_size, cfg.part_size, cfg.num_parts, pack_dir)
+        t0 = time.perf_counter()
+        ranks = spawn(dp_card_rank, 2, backend="gloo",
+                      devices=["cuda:0", "cuda:0"],
+                      args=(seed, shard_dir, pack_dir, faces,
+                            clip["verts"][0], B),
+                      workdir=root, timeout_s=DP_TIMEOUT_S)
+        log(f"[dp] 2 gloo ranks on one card: (b)-(d) in "
+            f"{time.perf_counter() - t0:.1f} s, start-up included")
+        launches += check_dp_sgd("(b) gloo, 2 ranks on one card",
+                                 [r["sgd"] for r in ranks], (1, 4), B, card)
+
+        # (c) the slice at full width
+        fulls = [r["full"] for r in ranks]
+        for rank, f in enumerate(fulls):
+            log(f"[dp] (c) stage 4 bfloat16 at Config() widths, global "
+                f"batch 4 as 2 ranks x 2 sharing one card (gloo; a "
+                f"correctness run, not a scaling number): rank {rank} step "
+                f"times {[round(t, 4) for t in f['times']]} s (first is "
+                f"warm-up), {statistics.median(f['times'][1:]):.4f} s/step "
+                f"(median of 3); peak memory {f['peak']:.2f} GiB; "
+                f"rasterize_fim_wim launches per step {f['launches']}, "
+                f"poses per launch {f['poses']}; moved {sorted(f['moved'])}; "
+                f"unchanged {sorted(f['same'])} [{card}]")
+        log("[dp] (c) losses (global, equal on both ranks): " + "; ".join(
+            ", ".join(f"{k} {v:.5g}" for k, v in m.items())
+            for m in fulls[0]["losses"]))
+        for f in fulls:
+            if not all(np.isfinite(v) for m in f["losses"] for v in
+                       m.values()):
+                raise AssertionError("(c): a loss is not finite")
+            if f["moved"] != f["lrs"] or "bg" not in f["same"]:
+                raise AssertionError(f"(c): moved {f['moved']}, trains "
+                                     f"{f['lrs']}")
+            if f["launches"] != [1] * 4 or f["poses"] != [2] * 4:
+                raise AssertionError("(c): a rank's step did not rasterize "
+                                     "its 2 poses in one kernel launch")
+            if f["losses"] != fulls[0]["losses"]:
+                raise AssertionError("(c): the ranks logged other losses")
+        if len({f["digest"] for f in fulls}) != 1:
+            raise AssertionError("(c): the replicas differ after 4 steps")
+        launches += sum(sum(f["launches"]) for f in fulls)
+
+        # (d) serving and generate_batch over the ranks
+        T, S = cfg.num_frames, cfg.image_size
+        for dtype in ("bfloat16", "float32"):
+            d, n = 0, 0
+            for r in ranks:
+                sv = r["serve"][dtype]
+                for vid, frames in sv["written"].items():
+                    for k, c in (("final", 3), ("coarse", 3), ("mask", 1),
+                                 ("tsf", 3)):
+                        if frames[k].dtype != np.uint8 or frames[k].shape \
+                                != (T, S, S, c):
+                            raise AssertionError(f"(d): served {vid} {k}")
+                    d = max(d, u8_diff(frames, alone[dtype][vid]))
+                    n += 1
+                if sv["launches"] != sv["mine"]:
+                    raise AssertionError("(d): a served batch did not "
+                                         "rasterize in one launch")
+                launches += sv["launches"]
+            st = ranks[0]["serve"][dtype]["stats"]
+            log(f"[dp] (d) 2 gloo ranks on one card served {st['clips']} "
+                f"clips ({dtype}, 1 per batch, round-robin; launches per "
+                f"rank {[r['serve'][dtype]['launches'] for r in ranks]}): "
+                f"slowest rank's loop {st['loop_seconds']:.4f} s; vs phase "
+                f"6's one process, each clip alone: max {d} LSB (tolerance "
+                f"1) over {n} clips [{card}]")
+            if n != 4 or st["clips"] != 4:
+                raise AssertionError("(d): the ranks did not serve every "
+                                     "clip once")
+            if not d <= 1:
+                raise AssertionError("(d): the ranks' served clips disagree "
+                                     "with one process")
+        db = max(r["batch"]["diff"] for r in ranks)
+        log(f"[dp] (d) generate_batch(clips, mesh) float32 over 2 ranks: "
+            f"{ranks[0]['batch']['shape']} on each; vs per-clip generation "
+            f"max abs {db:.3e} (tolerance 1e-4)")
+        if not db <= 1e-4 or any(r["batch"]["shape"][0] != 2 for r in ranks):
+            raise AssertionError("(d): generate_batch over the ranks "
+                                 "disagrees with per-clip generation")
+
+        # (e) NCCL across cards
+        if torch.cuda.device_count() >= 2:
+            ranks = spawn(dp_sgd_rank, 2, backend="nccl",
+                          devices=["cuda:0", "cuda:1"], args=((1, 4), seed, B),
+                          workdir=root, timeout_s=DP_TIMEOUT_S)
+            check_dp_sgd("(e) NCCL, 2 cards", ranks, (1, 4), B, card)
+        else:
+            log(f"[dp] (e) NCCL over two cards: not run, this machine has "
+                f"{torch.cuda.device_count()} card")
+    log(f"[dp] phase 11 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1915,7 +2371,7 @@ def main(argv=None) -> int:
     del pipe16
 
     # ---- phase 6: serve and score ----
-    phase_serve(args.seed, engine, card)
+    alone = phase_serve(args.seed, engine, card)
 
     # ---- phase 7: train ----
     train_launches = phase_train(args.seed, clip, engine, card)
@@ -1931,11 +2387,15 @@ def main(argv=None) -> int:
     # ---- phase 10: the ablation zoo ----
     phase_zoo(args.seed, card)
 
+    # ---- phase 11: data parallelism ----
+    dp_launches = phase_dp(args.seed, clip, faces, alone, card)
+
     kernels = [{
         "name": "rasterize_fim_wim", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches, "train_launches": train_launches,
-        "body_launches": body_launches, **k}] + flow_kernels
+        "body_launches": body_launches, "dp_launches": dp_launches,
+        **k}] + flow_kernels
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -49,25 +49,31 @@ def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def save_checkpoint(ckpt_dir: str, step: int, pipe, state) -> str:
+def save_checkpoint(ckpt_dir: str, step: int, pipe, state,
+                    mesh=None) -> str:
     """Write ``params_iter_<step>.npz`` (every module of ``pipe`` as a JAX
     param tree) and ``train_state_iter_<step>.pt`` (``state.state_dict()``)
     into ``ckpt_dir``, each through a temporary name; returns the .npz
-    path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    path. With a data-parallel ``mesh`` (whose replicas are equal) rank 0
+    alone writes, and every rank waits for it before going on."""
     path = os.path.join(ckpt_dir, export_name(step))
-    with open(path + ".tmp", "wb") as f:
-        np.savez(f, **flatten(jax_params(pipe)))
-    os.replace(path + ".tmp", path)
-    spath = os.path.join(ckpt_dir, train_state_name(step))
-    torch.save(state.state_dict(), spath + ".tmp")
-    os.replace(spath + ".tmp", spath)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        with open(path + ".tmp", "wb") as f:
+            np.savez(f, **flatten(jax_params(pipe)))
+        os.replace(path + ".tmp", path)
+        spath = os.path.join(ckpt_dir, train_state_name(step))
+        torch.save(state.state_dict(), spath + ".tmp")
+        os.replace(spath + ".tmp", spath)
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 
 def restore_train_state(pipe, state, ckpt_dir: str) -> Optional[int]:
     """Load the newest save in ``ckpt_dir`` (every module, the optimizer
-    states and the step) for ``--resume``; returns its step, or None when
+    states and the step) for ``--resume`` (each rank of a mesh loads it
+    itself); returns its step, or None when
     there is no export. Raises FileNotFoundError when the newest export
     has no optimizer state beside it (a JAX export)."""
     found = latest_export(ckpt_dir)

@@ -15,6 +15,7 @@ are read and written with ``cv2``, imported where it is used.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import threading
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from jafpro_tpu_torch.config import default_smpl_faces_path, get_general_options
+from jafpro_tpu_torch.device import resolve_device
 
 STREAMS = ("final", "coarse", "mask", "tsf")
 _PREFIX = {"final": "frame", "coarse": "coarse_frame", "mask": "mask_frame",
@@ -251,10 +253,12 @@ def _shard_paths(shards: str) -> list:
     return paths
 
 
-def _raw_batch_source(args, cfg, rng, verts):
+def _raw_batch_source(args, cfg, rng, verts, in_order: bool = False):
     """(next_raw, close): ``next_raw()`` gives a stacked raw batch (before
     the curriculum) from --shards (the native reader), --synthetic, or
-    per-sample dataset loads; ``close()`` releases the source."""
+    per-sample dataset loads; ``close()`` releases the source. With
+    ``in_order`` the reader uses one thread, so its batches come in the
+    seed's order (every rank of a mesh draws the same ones)."""
     from jafpro_tpu_torch.train.common import synthetic_batch
 
     if args.shards:
@@ -268,7 +272,8 @@ def _raw_batch_source(args, cfg, rng, verts):
             num_verts=verts.shape[0] if verts is not None else cfg.num_verts)
         reader = ShardReader(
             spec, _shard_paths(args.shards), batch=cfg.batch_size,
-            prefetch=4, threads=2, seed=args.seed, shuffle=True, loop=True)
+            prefetch=4, threads=1 if in_order else 2, seed=args.seed,
+            shuffle=True, loop=True)
         print(f"shard reader: {reader.num_records} records")
         return (lambda: collapse_target_dims(spec, next(reader))), \
             reader.close
@@ -317,20 +322,36 @@ def _raw_batch_source(args, cfg, rng, verts):
     return load, lambda: None
 
 
-def cmd_train(args) -> None:
-    import queue
+def _rank_devices(cmd: str, device: str, n: int) -> tuple:
+    """(backend, each rank's device) for ``n`` ranks on ``device``'s kind:
+    NCCL with one card per rank on CUDA, gloo on the CPU. Refuses more
+    ranks than cards: ranks never share a card, and nothing falls back to
+    gloo or the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        count = torch.cuda.device_count()
+        if n > count:
+            raise SystemExit(
+                f"{cmd}: --num-devices {n} needs {n} CUDA devices, this "
+                f"host has {count}; the ranks take one card each")
+        return "nccl", [f"cuda:{r}" for r in range(n)]
+    return "gloo", [str(dev)] * n
 
-    from jafpro_tpu_torch.checkpoints import (
-        restore_train_state, save_checkpoint)
-    from jafpro_tpu_torch.device import resolve_device
-    from jafpro_tpu_torch.pipeline import JAFProPipeline
-    from jafpro_tpu_torch.train.common import (
-        TrainState, apply_curriculum, synthetic_quad_mesh, to_device)
 
-    if args.num_devices > 1:
-        raise SystemExit("train: --num-devices > 1 is not supported by the "
-                         "port yet; it trains on one card")
-    dev = resolve_device(args.device)
+@contextlib.contextmanager
+def _quiet_unless_main(mesh):
+    """Rank 0 prints; the other ranks' standard output is dropped."""
+    if mesh.rank == 0:
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
+
+
+def train_config(args):
+    """The training ``Config`` for ``args``: the general options with the
+    command line's overrides (the synthetic size, dtype, batch, face GAN,
+    save interval)."""
     cfg = get_general_options()
     if args.synthetic:  # the JAX CLI's small synthetic configuration
         cfg.image_size = 64
@@ -350,6 +371,46 @@ def cmd_train(args) -> None:
     if args.debug:
         cfg.model_save_interval = 3
         cfg.vis_interval = 3
+    return cfg
+
+
+def cmd_train(args) -> None:
+    cfg = train_config(args)
+    n = args.num_devices
+    if n <= 1:
+        run_train(args, cfg)
+        return
+    from jafpro_tpu_torch.parallel import spawn
+
+    if cfg.batch_size % n:
+        raise SystemExit(f"batch_size {cfg.batch_size} not divisible by "
+                         f"--num-devices {n}")
+    backend, devices = _rank_devices("train", args.device, n)
+    print(f"data-parallel over {n} devices", flush=True)
+    spawn(_train_rank, n, backend=backend, devices=devices,
+          args=(args, cfg))
+
+
+def _train_rank(mesh, args, cfg) -> None:
+    with _quiet_unless_main(mesh):
+        run_train(args, cfg, mesh)
+
+
+def run_train(args, cfg, mesh=None) -> None:
+    """``cli train`` on one device, or as one rank of ``mesh``: every rank
+    builds the same seeded pipeline (made rank 0's by ``replicate``) and
+    draws the same global batches, keeps its ``shard_batch`` of each and
+    steps through ``data_parallel_jit``; rank 0 alone logs and saves."""
+    import queue
+
+    from jafpro_tpu_torch.checkpoints import (
+        restore_train_state, save_checkpoint)
+    from jafpro_tpu_torch.pipeline import JAFProPipeline
+    from jafpro_tpu_torch.train.common import (
+        TrainState, apply_curriculum, synthetic_quad_mesh, to_device)
+
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    main_rank = mesh is None or mesh.rank == 0
     gen = torch.Generator().manual_seed(args.seed)
     verts = None
     if args.synthetic:
@@ -371,7 +432,7 @@ def cmd_train(args) -> None:
 
     ckpt_dir = os.path.join(cfg.model_save_dir, args.exp_name)
     start_it = 0
-    if args.resume:
+    if args.resume:  # every rank reads the same save
         try:
             prev = restore_train_state(pipe, state, ckpt_dir)
         except FileNotFoundError as e:
@@ -379,13 +440,21 @@ def cmd_train(args) -> None:
         if prev is not None:
             start_it = prev + 1
             print(f"resumed from {ckpt_dir}/params_iter_{prev}.npz")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if mesh is not None:
+        from jafpro_tpu_torch.parallel import (
+            data_parallel_jit, replicate, shard_batch)
+
+        replicate(mesh, pipe)
+        step_fn = data_parallel_jit(step_fn, mesh)
+    if main_rank:
+        os.makedirs(ckpt_dir, exist_ok=True)
 
     rng = np.random.RandomState(args.seed + start_it)
-    next_raw, close_source = _raw_batch_source(args, cfg, rng, verts)
+    next_raw, close_source = _raw_batch_source(args, cfg, rng, verts,
+                                               in_order=mesh is not None)
     # one feeder thread reads, applies the curriculum and copies batch i+1
-    # to the device while step i runs; one worker keeps the rng draws in
-    # the serial loop's order
+    # (this rank's shard of it) to the device while step i runs; one
+    # worker keeps the rng draws in the serial loop's order
     batch_q: "queue.Queue" = queue.Queue(maxsize=2)
 
     def feed():
@@ -393,7 +462,8 @@ def cmd_train(args) -> None:
             for _ in range(args.iters):
                 b = apply_curriculum(dict(next_raw()), args.stage, rng,
                                      cfg.maximum_ref_frames)
-                batch_q.put(to_device(b, dev))
+                batch_q.put(to_device(b, dev) if mesh is None
+                            else shard_batch(mesh, b))
             batch_q.put(None)
         except BaseException as e:  # re-raised by the training loop
             batch_q.put(e)
@@ -401,8 +471,9 @@ def cmd_train(args) -> None:
     feeder = threading.Thread(target=feed, daemon=True)
     feeder.start()
     # every step's metrics (G/D/FD/recon/...), one JSON line per step
-    with open(os.path.join(ckpt_dir, "losses.jsonl"),
-              "a" if start_it else "w") as loss_log:
+    with (open(os.path.join(ckpt_dir, "losses.jsonl"),
+               "a" if start_it else "w") if main_rank
+          else contextlib.nullcontext()) as loss_log:
         for it in range(start_it, start_it + args.iters):
             batch = batch_q.get()
             if isinstance(batch, BaseException):
@@ -415,32 +486,80 @@ def cmd_train(args) -> None:
             row = {"stage": args.stage, "iter": it,
                    "seconds": round(seconds, 4)}
             row.update({k: float(v) for k, v in metrics.items()})
-            loss_log.write(json.dumps(row) + "\n")
+            if main_rank:
+                loss_log.write(json.dumps(row) + "\n")
             print(f"[stage{args.stage}] iter {it} loss {row['loss']:.4f} "
                   f"({seconds:.3f}s)")
             if it > 0 and it % cfg.model_save_interval == 0:
-                save_checkpoint(ckpt_dir, it, pipe, state)
+                save_checkpoint(ckpt_dir, it, pipe, state, mesh)
     # the feeder has read its last batch; the reader may close only once
     # no thread is inside it
     feeder.join()
     close_source()
     last = start_it + args.iters - 1
-    save_checkpoint(ckpt_dir, max(last, 0), pipe, state)
+    save_checkpoint(ckpt_dir, max(last, 0), pipe, state, mesh)
     print("Training Done.")
 
 
-def cmd_infer(args) -> None:
-    from jafpro_tpu_torch.checkpoints import restore_latest
-    from jafpro_tpu_torch.device import resolve_device
+def serve_share(groups: Sequence[tuple], load: Callable, compute: Callable,
+                write: Callable, mesh=None, **kw) -> dict:
+    """``serve`` over this rank's share of ``groups`` (round-robin: rank r
+    takes groups r, r + world, ...; all of them without a mesh). Returns
+    the loop's stats with ``clips`` counted; with a mesh, every rank's:
+    the clips summed, the slowest rank's loop seconds and each phase's
+    milliseconds averaged over the batches of all ranks."""
+    mine = list(groups)
+    if mesh is not None:
+        mine = mine[mesh.rank::mesh.world]
+    stats = serve(mine, load, compute, write, **kw)
+    stats["clips"] = sum(len(g) for g in mine)
+    if mesh is None:
+        return stats
+    from jafpro_tpu_torch.parallel.mesh import gather_over_ranks
 
-    streams = _parse_streams(args.streams)
-    if args.num_devices > 1:
-        raise SystemExit("infer: --num-devices > 1 is not supported by the "
-                         "port yet; it serves on one card")
+    keys = ("clips", "items", "loop_seconds", "load_ms", "compute_ms",
+            "write_ms")
+    per = gather_over_ranks(torch.tensor(
+        [float(stats[k]) for k in keys], dtype=torch.float64), mesh).cpu()
+    per = {k: per[:, i] for i, k in enumerate(keys)}
+    items = max(float(per["items"].sum()), 1.0)
+    out = {"clips": int(per["clips"].sum()), "items": int(per["items"].sum()),
+           "loop_seconds": float(per["loop_seconds"].max()),
+           "ranks": mesh.world}
+    for k in ("load_ms", "compute_ms", "write_ms"):
+        out[k] = float((per[k] * per["items"]).sum()) / items
+    return out
+
+
+def cmd_infer(args) -> None:
+    _parse_streams(args.streams)
     if args.clips_per_batch < 1:
         raise SystemExit("infer: --clips-per-batch must be >= 1")
     cfg = get_general_options()
-    dev = resolve_device(args.device)
+    n = args.num_devices
+    if n <= 1:
+        run_infer(args, cfg)
+        return
+    from jafpro_tpu_torch.parallel import spawn
+
+    backend, devices = _rank_devices("infer", args.device, n)
+    print(f"data-parallel over {n} devices", flush=True)
+    spawn(_infer_rank, n, backend=backend, devices=devices, args=(args, cfg))
+
+
+def _infer_rank(mesh, args, cfg) -> None:
+    with _quiet_unless_main(mesh):
+        run_infer(args, cfg, mesh)
+
+
+def run_infer(args, cfg, mesh=None) -> None:
+    """``cli infer`` on one device, or as one rank of ``mesh``: each rank
+    loads, generates and writes its share of the clip groups
+    (``serve_share``); rank 0 writes ``serving_stats.json`` for all."""
+    from jafpro_tpu_torch.checkpoints import restore_latest
+
+    streams = _parse_streams(args.streams)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     # the reference appends one line per video naming the chosen reference
     # frames (``src/data.py:530-535`` -> log_result/chosen_frame.txt)
     audit_dir = os.path.join(cfg.project_dir, "log_result")
@@ -459,6 +578,10 @@ def cmd_infer(args) -> None:
         print(f"restored {ckpt_dir}/params_iter_{step}.npz")
     else:
         print(f"no exported params in {ckpt_dir}: seeded weights")
+    if mesh is not None:
+        from jafpro_tpu_torch.parallel import replicate
+
+        replicate(mesh, pipe)
     gen = serving_generator(pipe, cfg)
 
     def write(group, out):
@@ -476,15 +599,16 @@ def cmd_infer(args) -> None:
                         save_dir, f"{_PREFIX[s]}_{i:03d}.jpg"), arr[i])
             print("wrote", save_dir)
 
-    stats = serve(group_items(vids, args.clips_per_batch), load,
-                  generate_group(gen), write,
-                  prefetch=int(os.environ.get("JAFPRO_SERVE_PREFETCH", "2")),
-                  writers=int(os.environ.get("JAFPRO_SERVE_WRITERS", "2")))
-    if vids:
+    stats = serve_share(
+        group_items(vids, args.clips_per_batch), load, generate_group(gen),
+        write, mesh,
+        prefetch=int(os.environ.get("JAFPRO_SERVE_PREFETCH", "2")),
+        writers=int(os.environ.get("JAFPRO_SERVE_WRITERS", "2")))
+    if vids and (mesh is None or mesh.rank == 0):
         # the serving loop only (no pipeline build or weight load)
-        stats = {"clips": len(vids), "clips_per_batch": args.clips_per_batch,
+        stats = {"clips_per_batch": args.clips_per_batch,
                  "device": str(dev), **stats}
-        stats["clips_per_s"] = len(vids) / stats["loop_seconds"]
+        stats["clips_per_s"] = stats["clips"] / stats["loop_seconds"]
         with open(os.path.join(cfg.test_save_dir, args.exp_name,
                                "serving_stats.json"), "w") as f:
             json.dump(stats, f)
@@ -553,7 +677,6 @@ def _eval_select_frames(files, data_type: str, role: str):
 def cmd_evaluate(args) -> None:
     import cv2
 
-    from jafpro_tpu_torch.device import resolve_device
     from jafpro_tpu_torch.evaluate import evaluate_video
 
     dev = resolve_device(args.device)
@@ -678,7 +801,9 @@ def main(argv: Optional[list] = None) -> None:
                    help="override cfg.batch_size (0 = reference default: 4, "
                    "2 for stage 2)")
     t.add_argument("--num-devices", type=int, default=0,
-                   help="only 0 or 1: the port trains on one card")
+                   help="data-parallel ranks, one per card (NCCL) with "
+                   "--device cuda, gloo ranks with --device cpu; the batch "
+                   "is split evenly among them (0 or 1: one device)")
     t.add_argument("--shards", default="",
                    help="packed-shard dir or glob; training then streams "
                    "through the native reader")
@@ -705,7 +830,10 @@ def main(argv: Optional[list] = None) -> None:
                    help="comma-set of output streams to fetch and write "
                    "(must include 'final')")
     i.add_argument("--num-devices", type=int, default=0,
-                   help="only 0 or 1: the port serves on one card")
+                   help="data-parallel ranks, one per card (NCCL) with "
+                   "--device cuda, gloo ranks with --device cpu; each "
+                   "serves its share of the clip batches (0 or 1: one "
+                   "device)")
     i.add_argument("--clips-per-batch", type=int, default=1,
                    help="clips generated together in one batched pass "
                    "(they must share their shapes)")

@@ -120,16 +120,28 @@ class VideoGenerator:
                 for k, v in clip.items() if k in self._CLIP_FIELDS}
         return {k: v[0] for k, v in self.generate_batch(clip).items()}
 
-    def generate_batch(self, clips) -> Dict[str, torch.Tensor]:
+    def generate_batch(self, clips, mesh=None) -> Dict[str, torch.Tensor]:
         """Many clips in one pass: every field of ``clips`` carries a
         leading n_clips axis on the per-clip layout of ``__call__``
         (``stack_clips`` builds it). The texture nets, both CRNs and the
         propagation net see all clips' samples as one batch; with
         ``flow_mode="batch"`` one rasterizer launch covers all n*T poses.
-        Returns (n_clips, T, S, S, C) tensors."""
+        Returns (n_clips, T, S, S, C) tensors.
+
+        With a data-parallel ``mesh`` (``parallel.create_mesh``, whose
+        pipelines the caller made equal with ``replicate``) each rank
+        generates its ``shard_batch`` of the clips, and every rank gets
+        the whole result, gathered over an all-reduce."""
+        clips = {k: v for k, v in clips.items() if k in self._CLIP_FIELDS}
+        if mesh is not None:
+            from jafpro_tpu_torch.parallel.mesh import (
+                gather_over_ranks, shard_batch)
+
+            mine = self.generate_batch(shard_batch(mesh, clips))
+            return {k: gather_over_ranks(v, mesh).flatten(0, 1)
+                    for k, v in mine.items()}
         dev = self.pipe.device
-        clips = {k: torch.as_tensor(v, device=dev)
-                 for k, v in clips.items() if k in self._CLIP_FIELDS}
+        clips = {k: torch.as_tensor(v, device=dev) for k, v in clips.items()}
         clock = _StageClock(dev) if self.time_stages else _no_clock
         with torch.no_grad():
             result = self._generate(normalize_batch(clips), clock)

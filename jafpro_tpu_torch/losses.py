@@ -20,6 +20,8 @@ from typing import List, Sequence
 
 import torch
 
+from jafpro_tpu_torch.parallel.mesh import active_mesh
+
 VGG_LOSS_WEIGHTS = (1 / 2.6, 1 / 4.8, 1 / 3.7, 1 / 5.6, 10 / 1.5)
 CRN_VGG_WEIGHTS = (1 / 32, 1 / 16, 1 / 8, 1 / 4, 1.0)
 _CAFFE_MEANS = (103.939, 116.779, 123.68)
@@ -86,8 +88,16 @@ def bce(pred: torch.Tensor, target: torch.Tensor,
 def bce_masked(pred: torch.Tensor, target: torch.Tensor, valid: torch.Tensor,
                eps: float = 1e-7) -> torch.Tensor:
     """Per-sample-masked BCE: the mean over the valid samples only (the
-    reference drops samples with empty face boxes, ``train/4:338-353``)."""
+    reference drops samples with empty face boxes, ``train/4:338-353``).
+    Inside a data-parallel step it divides by the global batch's count of
+    valid samples and returns this rank's share times the world size, so
+    the mean over the ranks is the global value (``parallel/mesh.py``)."""
     per = _bce_terms(pred, target, eps)
     per = per.reshape(per.shape[0], -1).mean(dim=1)
     v = valid.to(per.dtype)
-    return torch.sum(per * v) / torch.clamp(torch.sum(v), min=1.0)
+    mesh = active_mesh()
+    if mesh is None:
+        return torch.sum(per * v) / torch.clamp(torch.sum(v), min=1.0)
+    count = mesh.all_reduce(valid.float().sum())
+    return mesh.world * torch.sum(per * v) / torch.clamp(
+        count, min=1.0).to(per.dtype)

@@ -17,11 +17,15 @@ from torch import nn
 
 from jafpro_tpu_torch.models.common import Conv2d, ReflectConv
 from jafpro_tpu_torch.ops.sampling import resize_bilinear
+from jafpro_tpu_torch.parallel.mesh import active_mesh, sum_over_ranks
 
 
 class BatchStatsNorm(nn.Module):
     """BatchNorm with current-batch statistics: per channel over (B, H, W),
-    or over (H, W) per sample with ``per_sample=True``."""
+    or over (H, W) per sample with ``per_sample=True``. Inside a
+    data-parallel step (``parallel.mesh.active_mesh``) the (B, H, W)
+    statistics are the global batch's: sums over every rank's equal shard,
+    the variance in two passes as without a mesh."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -31,9 +35,17 @@ class BatchStatsNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, per_sample: bool) -> torch.Tensor:
         x32 = x.float()
-        dims = (2, 3) if per_sample else (0, 2, 3)
-        mean = x32.mean(dim=dims, keepdim=True)
-        var = torch.square(x32 - mean).mean(dim=dims, keepdim=True)
+        mesh = None if per_sample else active_mesh()
+        if mesh is None:
+            dims = (2, 3) if per_sample else (0, 2, 3)
+            mean = x32.mean(dim=dims, keepdim=True)
+            var = torch.square(x32 - mean).mean(dim=dims, keepdim=True)
+        else:
+            n = x32.numel() // x32.shape[1] * mesh.world
+            mean = sum_over_ranks(
+                x32.sum(dim=(0, 2, 3), keepdim=True), mesh) / n
+            var = sum_over_ranks(torch.square(x32 - mean).sum(
+                dim=(0, 2, 3), keepdim=True), mesh) / n
         y = (x32 - mean) / torch.sqrt(var + self.eps)
         y = y * self.scale.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
         return y.to(x.dtype)

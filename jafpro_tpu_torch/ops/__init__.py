@@ -9,3 +9,4 @@ from jafpro_tpu_torch.ops.image import (  # noqa: F401
     max_pool_3x3s2,
     channel_norm,
 )
+from jafpro_tpu_torch.ops.correlation import correlation  # noqa: F401

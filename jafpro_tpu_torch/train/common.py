@@ -17,6 +17,7 @@ import torch
 
 from jafpro_tpu_torch.data.shardio import (
     U8_SYMMETRIC_FIELDS, U8_UNIT_FIELDS)
+from jafpro_tpu_torch.parallel.mesh import active_mesh, reduce_gradients
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,14 +78,19 @@ class TrainState:
               names: Sequence[str]) -> Dict[str, list]:
         """d loss / d (parameters of ``names``), per module. Parameters the
         loss does not reach get zeros, as in JAX. No other tensor's
-        ``.grad`` is touched."""
+        ``.grad`` is touched. Inside a data-parallel step each gradient is
+        averaged over the ranks (``parallel.mesh.reduce_gradients``)."""
         flat = [p for n in names for p in self.params[n]]
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g
+              for p, g in zip(flat, gs)]
+        mesh = active_mesh()
+        if mesh is not None:
+            reduce_gradients(gs, mesh)
         out, i = {}, 0
         for n in names:
             k = len(self.params[n])
-            out[n] = [torch.zeros_like(p) if g is None else g
-                      for p, g in zip(self.params[n], gs[i:i + k])]
+            out[n] = gs[i:i + k]
             i += k
         return out
 

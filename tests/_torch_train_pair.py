@@ -11,6 +11,8 @@ import torch
 
 from jafpro_tpu.config import Config as JConfig
 from jafpro_tpu.geometry.flow import SMPLFlowEngine as JEngine
+from jafpro_tpu.parallel import create_mesh as jcreate_mesh, \
+    data_parallel_jit as jdata_parallel_jit
 from jafpro_tpu.pipeline import JAFProPipeline as JPipeline
 from jafpro_tpu.train import TrainState as JTrainState
 from jafpro_tpu.train import stage1 as js1, stage2 as js2, stage34 as js34
@@ -95,6 +97,29 @@ def jax_pair(stage, steps=1):
         metrics.append({k: float(v) for k, v in m.items()})
     return params, jax.tree_util.tree_map(np.asarray, state.params), \
         metrics, batch
+
+
+def jax_sharded_step(stage, batch):
+    """(params before, trained modules' params after, metrics) of one SGD
+    step of the JAX package's ``stage`` on the global ``batch`` through its
+    ``data_parallel_jit`` on 2 of the virtual CPU devices."""
+    _, faces = synthetic_quad_mesh(6)
+    jpipe = JPipeline(JConfig(**SIZES, rasterizer_face_chunk=32),
+                      flow_engine=JEngine.create(faces=faces, image_size=64,
+                                                 chunk=32))
+    params = numpy_params(jpipe)
+    make, lrs = JAX_STEPS[stage]
+    txs = {k: optax.sgd(SGD_LR) for k in lrs()}
+    state = JTrainState(
+        params=params, opt_states={k: txs[k].init(params[k]) for k in txs},
+        txs=txs, step=jnp.zeros((), jnp.int32))
+    step = jdata_parallel_jit(make(jpipe), jcreate_mesh(2, ("data",)),
+                              donate_state=False)
+    state, m = step(state, {k: jnp.asarray(v) for k, v in batch.items()})
+    after = jax.tree_util.tree_map(np.asarray, {k: state.params[k]
+                                                for k in txs})
+    return (jax.tree_util.tree_map(np.asarray, params), after,
+            {k: float(v) for k, v in m.items()})
 
 
 def port_run(stage, params, batch, steps=1):

@@ -10,6 +10,8 @@ inside the test). Run on a GPU host with
 (``tests/conftest.py`` imports JAX, which a GPU host need not have).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -123,6 +125,23 @@ def test_stage4_step_card_vs_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke.phase_train_reference(0, stages=(4,))
+
+
+def test_data_parallel_step_two_ranks_on_card(cuda):
+    """Check (b) of ``chip_smoke.py``'s phase 11: two gloo ranks sharing
+    the card take one stage-4 SGD step at 64 px, global batch 4 (2 per
+    rank, the faces shared 2 and 1), through ``data_parallel_jit``:
+    metrics and updates within ``TRAIN_METRIC_RTOL`` /
+    ``TRAIN_UPDATE_RTOL`` of one process at batch 4, replicas bitwise
+    equal, the rasterizer once per rank on its 2 poses."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    assert chip_smoke.dp_reference(0, stages=(4,)) == 2
 
 
 def test_avg_pool_gradient_of_channels_last_input(cuda):
@@ -242,7 +261,8 @@ def test_correlation_launch_counts(cuda):
     """One forward launch per call, one backward launch per backward, and
     none for the plain version; a FlowNetC harness step launches each
     once, a FlowNetSD step neither."""
-    from jafpro_tpu_torch.ops import correlation as OC
+    # the module (the package re-exports the function under its name)
+    OC = importlib.import_module("jafpro_tpu_torch.ops.correlation")
     from jafpro_tpu_torch.train.flow_harness import (
         make_flow_train_step, synthetic_flow_batch)
 

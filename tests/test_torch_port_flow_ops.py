@@ -13,6 +13,8 @@ Inputs are numpy-seeded, float32 unless a test says otherwise. Tolerances:
 relative on batch norm.
 """
 
+import importlib
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -27,8 +29,10 @@ from jafpro_tpu.ops.sampling import resample2d as j_resample2d
 from jafpro_tpu_torch.bridge import flax_from_state_dict, load_flax
 from jafpro_tpu_torch.models import hmr as thmr
 from jafpro_tpu_torch.models.common import FlaxBatchNorm2d
-from jafpro_tpu_torch.ops import correlation as tc
 from jafpro_tpu_torch.ops.sampling import resample2d
+# the module (``jafpro_tpu_torch.ops`` re-exports the function under its
+# name, as ``jafpro_tpu.ops`` does)
+tc = importlib.import_module("jafpro_tpu_torch.ops.correlation")
 
 torch.set_num_threads(1)
 

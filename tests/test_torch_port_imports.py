@@ -74,11 +74,44 @@ def test_only_the_export_tool_imports_jax():
         assert not bad, (path, bad)
 
 
+def test_rank_helpers_import_no_jax():
+    """The data-parallel tests' ranks are fresh interpreters that import
+    ``tests/_torch_parallel_helpers.py``: it imports neither JAX nor a test
+    module."""
+    path = os.path.join(ROOT, "tests", "_torch_parallel_helpers.py")
+    names = list(imported_names(path))
+    assert "jafpro_tpu_torch.parallel" in names
+    bad = [n for n in names
+           if FORBIDDEN.match(n) or n.split(".")[0].startswith(("test_",
+                                                                  "_torch_"))]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("package", ["", "geometry", "ops", "train",
+                                     "parallel"])
+def test_package_exports_match_jax(package):
+    """Each ``__init__.py`` of the port exports what the JAX package's
+    does (read from its source; the JAX package is not imported)."""
+    import importlib
+
+    jax_init = os.path.join(ROOT, "jafpro_tpu", package, "__init__.py")
+    with open(jax_init) as f:
+        tree = ast.parse(f.read(), jax_init)
+    names = {a.asname or a.name for node in tree.body
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert names
+    port = importlib.import_module(
+        "jafpro_tpu_torch" + (f".{package}" if package else ""))
+    assert sorted(n for n in names if not hasattr(port, n)) == []
+
+
 def test_modules_import_with_jax_blocked():
     """Import every port module and chip_smoke.py in a fresh interpreter in
     which ``import jax`` / ``import jafpro_tpu`` fail."""
     mods = port_modules()
     assert {"jafpro_tpu_torch.geometry.rasterizer",
+            "jafpro_tpu_torch.parallel",
+            "jafpro_tpu_torch.parallel.mesh",
             "jafpro_tpu_torch.ops.correlation",
             "jafpro_tpu_torch.models.flownet",
             "jafpro_tpu_torch.train.flow_harness",

@@ -228,9 +228,16 @@ def test_infer_refuses_mismatched_pack_and_bad_options(served, monkeypatch,
         cli.main(["infer", "-n", "1", "--packed-clips", str(tmp_path / "pk"),
                   "--device", "cpu"])
     for argv in (["--streams", "coarse"], ["--streams", "final,nope"],
-                 ["--num-devices", "2"], ["--clips-per-batch", "0"]):
+                 ["--clips-per-batch", "0"]):
         with pytest.raises(SystemExit):
             cli.main(["infer", "--device", "cpu"] + argv)
+    # ranks never share a card: more ranks than cards is refused
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(SystemExit, match="--num-devices 2 needs 2 CUDA "
+                           "devices, this host has 1"):
+            cli.main(["infer", "-n", "1", "--num-devices", "2"])
     monkeypatch.delenv("JAFPRO_SMPL_FACES")
     monkeypatch.setattr(cli, "default_smpl_faces_path", lambda: None)
     with pytest.raises(SystemExit, match="SMPL faces"):

@@ -4,8 +4,9 @@ train --stage N --synthetic --iters 2 --device cpu`` for stages 1-4 writes
 serves; ``--resume`` and ``--init-from`` behave as in the JAX CLI (resume
 continues the step count and the loss log; a warm start loads the stage's
 consumed modules from a donor and nothing else); ``--no-face-gan`` drops
-the face GAN; ``--num-devices 2`` and a run without CUDA and without
-``--device cpu`` are refused.
+the face GAN; ``--num-devices 2`` with a batch it does not divide or more
+ranks than cards, and a run without CUDA and without ``--device cpu``,
+are refused (``test_torch_port_parallel_cli.py`` trains over ranks).
 
 A checkpoint of every module is ~0.5 GB (the two CRNs) and a stage-3
 optimizer state ~0.8 GB, so the runs go in one fixture that records what
@@ -188,9 +189,20 @@ def test_no_face_gan(runs):
 
 def test_refusals(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="num-devices"):
+    # data parallelism refuses a batch that its ranks cannot share evenly,
+    # and more ranks than cards (ranks never share a card)
+    with pytest.raises(SystemExit, match="batch_size 3 not divisible by "
+                       "--num-devices 2"):
         train("--stage", "1", "--synthetic", "--num-devices", "2",
-              "--device", "cpu")
+              "--batch-size", "3", "--device", "cpu")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(SystemExit, match="--num-devices 2 needs 2 CUDA "
+                           "devices, this host has 1"):
+            train("--stage", "1", "--synthetic", "--num-devices", "2",
+                  "-n", "twocards")
+    assert not os.path.exists(ckpt("twocards"))
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
