@@ -27,6 +27,7 @@ import torch
 
 from jafpro_tpu_torch.config import default_smpl_faces_path, get_general_options
 from jafpro_tpu_torch.device import resolve_device
+from jafpro_tpu_torch.utils import profiling
 
 STREAMS = ("final", "coarse", "mask", "tsf")
 _PREFIX = {"final": "frame", "coarse": "coarse_frame", "mask": "mask_frame",
@@ -37,33 +38,32 @@ def serve(items: Sequence[Any], load: Callable, compute: Callable,
           write: Callable, prefetch: int = 2, writers: int = 2) -> dict:
     """The serving loop: for each item ``write(item, compute(item,
     load(item)))`` over ``run_overlapped`` (loads prefetched, writes in a
-    pool, compute on this thread in order). Returns the loop's wall
-    seconds and each phase's mean milliseconds per item (the phases
-    overlap, so these are occupancy times, not a serial sum)."""
+    pool, compute on this thread in order), each phase in its span
+    (``serve.load``, ``serve.compute``, ``serve.write``; the item is the
+    served group). Returns the loop's wall seconds and each phase's mean
+    milliseconds per item, from those spans (the phases overlap, so these
+    are occupancy times, not a serial sum)."""
     from jafpro_tpu_torch.utils.overlap import run_overlapped
 
-    times: Dict[str, List[float]] = {"load": [], "compute": [], "write": []}
-    lock = threading.Lock()
+    phases: Dict[str, list] = {"load": [], "compute": [], "write": []}
 
-    def timed(name, fn):
-        def wrap(*a):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a)
-            finally:
-                with lock:
-                    times[name].append(time.perf_counter() - t0)
+    def phase(name, fn):
+        kept, full = phases[name], "serve." + name
+
+        def wrap(item, *a):
+            with profiling.span(full, item=item, keep=kept):
+                return fn(item, *a)
         return wrap
 
     t0 = time.perf_counter()
     n = 0
-    for _ in run_overlapped(items, timed("load", load),
-                            timed("compute", compute), timed("write", write),
+    for _ in run_overlapped(items, phase("load", load),
+                            phase("compute", compute), phase("write", write),
                             prefetch=prefetch, writers=writers):
         n += 1
     stats = {"items": n, "loop_seconds": time.perf_counter() - t0}
-    for k, v in times.items():
-        stats[f"{k}_ms"] = 1e3 * sum(v) / len(v) if v else 0.0
+    for k, v in phases.items():
+        stats[f"{k}_ms"] = sum(s.host_ms for s in v) / len(v) if v else 0.0
     return stats
 
 
@@ -118,14 +118,16 @@ def open_clip_source(cfg, num_refs: int, packed_clips: str = "",
 
 def generate_group(gen) -> Callable:
     """``compute(group, clips)`` for the serving loop: the group's clips as
-    one ``generate_batch`` call, waited for on the card, so the compute
-    phase's time is the batch's (the writer copies the frames out)."""
+    one ``generate_batch`` call, waited for on the card (``serve.sync``: the
+    host's wait), so the compute phase's time is the batch's (the writer
+    copies the frames out)."""
     from jafpro_tpu_torch.infer import stack_clips
 
     def compute(group, clips):
         out = gen.generate_batch(stack_clips(clips))
-        if gen.pipe.device.type == "cuda":
-            torch.cuda.synchronize(gen.pipe.device)
+        with profiling.span("serve.sync"):
+            if gen.pipe.device.type == "cuda":
+                torch.cuda.synchronize(gen.pipe.device)
         return out
 
     return compute
@@ -143,12 +145,16 @@ def serving_generator(pipe, cfg):
 def fetch_clips(group: Sequence[str], out: dict,
                 streams) -> Dict[str, Dict[str, np.ndarray]]:
     """The writer's copy of a batch to the host: ``{vid: {stream: (T, S,
-    S, C) uint8}}`` for each of ``streams``."""
+    S, C) uint8}}`` for each of ``streams`` (``serve.fetch``, ``n`` the
+    bytes copied)."""
     from jafpro_tpu_torch.infer import frames_to_uint8
 
-    host = {s: out[s].cpu() for s in streams}
-    return {vid: {s: frames_to_uint8(host[s][ci]) for s in streams}
-            for ci, vid in enumerate(group)}
+    with profiling.span("serve.fetch") as sp:
+        if sp:
+            sp.n = sum(out[s].nbytes for s in streams)
+        host = {s: out[s].cpu() for s in streams}
+        return {vid: {s: frames_to_uint8(host[s][ci]) for s in streams}
+                for ci, vid in enumerate(group)}
 
 
 def group_items(vids: Sequence[str], size: int) -> List[tuple]:
@@ -396,6 +402,30 @@ def _train_rank(mesh, args, cfg) -> None:
         run_train(args, cfg, mesh)
 
 
+@contextlib.contextmanager
+def traced(trace_dir: str, mesh=None):
+    """With ``trace_dir`` (``--trace-dir``), the block runs inside
+    ``profiling.trace(trace_dir)`` (a mesh's rank ``r`` in
+    ``trace_dir/rank<r>``), and the spans it recorded are written to
+    ``spans.jsonl`` there, one JSON record per span (a count of those the
+    full buffer dropped is printed)."""
+    if not trace_dir:
+        yield
+        return
+    if mesh is not None:
+        trace_dir = os.path.join(trace_dir, f"rank{mesh.rank}")
+    t0, dropped = time.time_ns(), profiling.dropped()
+    with profiling.trace(trace_dir):
+        yield
+    path = os.path.join(trace_dir, "spans.jsonl")
+    with open(path, "w") as f:     # an item that is no JSON value: its str
+        for r in profiling.spans(t0):
+            f.write(json.dumps(r, default=str) + "\n")
+    if profiling.dropped() > dropped:
+        print(f"{path}: {profiling.dropped() - dropped} spans dropped "
+              f"(the buffer holds {profiling.MAX_SPANS})")
+
+
 def run_train(args, cfg, mesh=None) -> None:
     """``cli train`` on one device, or as one rank of ``mesh``: every rank
     builds the same seeded pipeline (made rank 0's by ``replicate``) and
@@ -473,16 +503,16 @@ def run_train(args, cfg, mesh=None) -> None:
     # every step's metrics (G/D/FD/recon/...), one JSON line per step
     with (open(os.path.join(ckpt_dir, "losses.jsonl"),
                "a" if start_it else "w") if main_rank
-          else contextlib.nullcontext()) as loss_log:
+          else contextlib.nullcontext()) as loss_log, \
+            traced(args.trace_dir, mesh):
         for it in range(start_it, start_it + args.iters):
             batch = batch_q.get()
             if isinstance(batch, BaseException):
                 raise batch
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            seconds = time.perf_counter() - t0
+            with profiling.step_timer(
+                    sync=dev if dev.type == "cuda" else False) as timer:
+                state, metrics = step_fn(state, batch)
+            seconds = timer["seconds"]
             row = {"stage": args.stage, "iter": it,
                    "seconds": round(seconds, 4)}
             row.update({k: float(v) for k, v in metrics.items()})
@@ -599,11 +629,12 @@ def run_infer(args, cfg, mesh=None) -> None:
                         save_dir, f"{_PREFIX[s]}_{i:03d}.jpg"), arr[i])
             print("wrote", save_dir)
 
-    stats = serve_share(
-        group_items(vids, args.clips_per_batch), load, generate_group(gen),
-        write, mesh,
-        prefetch=int(os.environ.get("JAFPRO_SERVE_PREFETCH", "2")),
-        writers=int(os.environ.get("JAFPRO_SERVE_WRITERS", "2")))
+    with traced(args.trace_dir, mesh):
+        stats = serve_share(
+            group_items(vids, args.clips_per_batch), load,
+            generate_group(gen), write, mesh,
+            prefetch=int(os.environ.get("JAFPRO_SERVE_PREFETCH", "2")),
+            writers=int(os.environ.get("JAFPRO_SERVE_WRITERS", "2")))
     if vids and (mesh is None or mesh.rank == 0):
         # the serving loop only (no pipeline build or weight load)
         stats = {"clips_per_batch": args.clips_per_batch,
@@ -821,6 +852,9 @@ def main(argv: Optional[list] = None) -> None:
     t.add_argument("--dtype", default="",
                    help="override compute_dtype (e.g. float32)")
     t.add_argument("--device", default="cuda")
+    t.add_argument("--trace-dir", default="",
+                   help="run the training loop under torch.profiler: its "
+                   "trace and the program's spans (spans.jsonl) go here")
     t.set_defaults(fn=cmd_train)
 
     i = sub.add_parser("infer")
@@ -841,6 +875,9 @@ def main(argv: Optional[list] = None) -> None:
                    help="serve from a clip pack (pack --kind clips --mode "
                    "test) instead of decoding each clip's images")
     i.add_argument("--device", default="cuda")
+    i.add_argument("--trace-dir", default="",
+                   help="run the serving loop under torch.profiler: its "
+                   "trace and the program's spans (spans.jsonl) go here")
     i.set_defaults(fn=cmd_infer)
 
     e = sub.add_parser("evaluate")

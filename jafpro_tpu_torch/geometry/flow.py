@@ -21,6 +21,7 @@ from jafpro_tpu_torch.geometry.projection import (
     project_to_view, vertices_to_faces)
 from jafpro_tpu_torch.geometry.rasterizer import rasterize_fim_wim
 from jafpro_tpu_torch.ops.sampling import grid_sample
+from jafpro_tpu_torch.utils.profiling import span
 
 
 def cal_bc_transform(src_f2pts: torch.Tensor, dst_fims: torch.Tensor,
@@ -71,10 +72,18 @@ class SMPLFlowEngine:
     def project_faces(self, cam: torch.Tensor,
                       vertices: torch.Tensor) -> torch.Tensor:
         """View-space face vertices: (B, 3), (B, V, 3) -> (B, F, 3, 3)."""
-        view = project_to_view(vertices, cam, self.viewing_angle)
-        faces = torch.as_tensor(self.faces, dtype=torch.long,
-                                device=view.device)
-        return vertices_to_faces(view, faces)
+        with span("flow.project", device=True):
+            view = project_to_view(vertices, cam, self.viewing_angle)
+            faces = torch.as_tensor(self.faces, dtype=torch.long,
+                                    device=view.device)
+            return vertices_to_faces(view, faces)
+
+    def source_points(self, cam: torch.Tensor,
+                      vertices: torch.Tensor) -> torch.Tensor:
+        """Source-image xy of each face's vertices, y un-flipped:
+        (B, 3), (B, V, 3) -> (B, F, 3, 2)."""
+        xy = self.project_faces(cam, vertices)[..., 0:2]
+        return xy * xy.new_tensor([1.0, -1.0])
 
     def render_fim_wim(self, cam: torch.Tensor, vertices: torch.Tensor):
         """(B, 3), (B, V, 3) -> (f2verts (B,F,3,3), fim (B,S,S), wim (B,S,S,3))."""
@@ -86,8 +95,7 @@ class SMPLFlowEngine:
     def cal_flow(self, src_cam, src_vertices, tgt_cam, tgt_vertices):
         """Dense target->source sampling grid (B, S, S, 2) in the source
         image's normalized coords (source y un-flipped)."""
-        src_f2pts = self.project_faces(src_cam, src_vertices)[..., 0:2]
-        src_f2pts = src_f2pts * src_f2pts.new_tensor([1.0, -1.0])
+        src_f2pts = self.source_points(src_cam, src_vertices)
         _, fim, wim = self.render_fim_wim(tgt_cam, tgt_vertices)
         return cal_bc_transform(src_f2pts, fim, wim)
 
@@ -96,11 +104,20 @@ class SMPLFlowEngine:
         """Border-padded bilinear sample; src_image (B, C, S, S)."""
         return grid_sample(src_image, flow, padding_mode="border")
 
+    def bc_warp(self, src_image: torch.Tensor, src_f2pts: torch.Tensor,
+                fim: torch.Tensor, wim: torch.Tensor) -> torch.Tensor:
+        """``src_image`` (B, C, S, S) warped through the barycentric
+        transform of ``src_f2pts`` (``source_points``) onto ``fim``/``wim``."""
+        with span("flow.bc_warp", device=True):
+            return self.warp_image(src_image,
+                                   cal_bc_transform(src_f2pts, fim, wim))
+
     def __call__(self, src_img, src_cam, src_vertices, tgt_cam,
                  tgt_vertices) -> torch.Tensor:
         """tsf_image (B, C, S, S) = warp(src_img, flow(src -> tgt))."""
-        flow = self.cal_flow(src_cam, src_vertices, tgt_cam, tgt_vertices)
-        return self.warp_image(src_img, flow)
+        src_f2pts = self.source_points(src_cam, src_vertices)
+        _, fim, wim = self.render_fim_wim(tgt_cam, tgt_vertices)
+        return self.bc_warp(src_img, src_f2pts, fim, wim)
 
 
 def swap_smpl(src_cam: torch.Tensor, src_shape: torch.Tensor,

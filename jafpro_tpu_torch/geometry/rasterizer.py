@@ -36,6 +36,8 @@ from typing import NamedTuple
 
 import torch
 
+from jafpro_tpu_torch.utils.profiling import span
+
 FACE_BLOCK = 256  # faces per shared-memory block in the kernel
 NF = 19           # floats per face record (csrc/rasterizer.cu)
 
@@ -402,10 +404,12 @@ def rasterize_fim_wim(
     if face_verts.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {face_verts.device}")
     with torch.no_grad():
-        prep = prepare_faces(face_verts, image_size)
+        with span("flow.prepare_faces", device=True):
+            prep = prepare_faces(face_verts, image_size)
         run = (rasterize_prepared_reference
                if face_verts.device.type == "cpu" else rasterize_prepared_cuda)
-        out = run(prep, image_size, near, far, flip_y, return_depth)
+        with span("flow.raster", device=True):
+            out = run(prep, image_size, near, far, flip_y, return_depth)
     if not (face_verts.requires_grad and torch.is_grad_enabled()):
         return out
     fim, wim = out[:2]

@@ -18,9 +18,7 @@ single clip is a batch of one.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from typing import Dict, Sequence
 
 import numpy as np
@@ -29,9 +27,9 @@ import torch
 from jafpro_tpu_torch.data.texture import (
     build_texture_warp_lut, parts_to_atlas, texture_warp_atlas,
     texture_warp_lut)
-from jafpro_tpu_torch.geometry.flow import cal_bc_transform
 from jafpro_tpu_torch.pipeline import JAFProPipeline, to_nchw
 from jafpro_tpu_torch.train.common import normalize_batch
+from jafpro_tpu_torch.utils import profiling
 
 
 def _encode_u8(x: torch.Tensor) -> torch.Tensor:
@@ -39,40 +37,13 @@ def _encode_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp((x * 0.5 + 0.5) * 255.0, 0, 255).to(torch.uint8)
 
 
-class _StageClock:
-    """Times named stages of one call: CUDA events on a CUDA device, the
-    host clock elsewhere. A stage entered more than once adds up."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.spans = []
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        if self.cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-        else:
-            start = time.perf_counter()
-            yield
-            end = time.perf_counter()
-        self.spans.append((name, start, end))
-
-    def totals_ms(self) -> Dict[str, float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-        out: Dict[str, float] = {}
-        for name, start, end in self.spans:
-            ms = start.elapsed_time(end) if self.cuda else 1e3 * (end - start)
-            out[name] = out.get(name, 0.0) + ms
-        return out
-
-
-def _no_clock(name: str):
-    return contextlib.nullcontext()
+# the generator's stage spans and their keys in ``stage_ms``
+STAGES = {"gen.texture": "accumulate+inpaint",
+          "gen.background": "background CRN",
+          "gen.flow": "flow branch",
+          "gen.warp": "texture warp",
+          "gen.refine": "refine CRN+fuse",
+          "gen.propagation": "propagation"}
 
 
 @dataclasses.dataclass
@@ -80,8 +51,10 @@ class VideoGenerator:
     """``warp_mode``: "lut" warps through the per-clip integer-UV table
     (exact for uint8-valued IUV), "gather" through the 4-tap atlas sample.
     ``output_uint8`` encodes the four outputs to uint8 on the device.
-    ``time_stages`` times each stage of a call (CUDA events on the card)
-    into ``stage_ms`` (ms per stage, summed over frame groups)."""
+    ``time_stages`` times each stage of a call (its ``STAGES`` span, with
+    CUDA events on the card, on whether or not the profiler runs) into
+    ``stage_ms`` (ms per stage by ``STAGES``' keys, summed over frame
+    groups)."""
 
     pipe: JAFProPipeline
     frame_batch: int = 1
@@ -141,12 +114,24 @@ class VideoGenerator:
             return {k: gather_over_ranks(v, mesh).flatten(0, 1)
                     for k, v in mine.items()}
         dev = self.pipe.device
-        clips = {k: torch.as_tensor(v, device=dev) for k, v in clips.items()}
-        clock = _StageClock(dev) if self.time_stages else _no_clock
+        with profiling.span("gen.h2d") as sp:
+            if sp:
+                sp.n = sum(v.nbytes for v in clips.values() if not (
+                    isinstance(v, torch.Tensor) and v.device == dev))
+            clips = {k: torch.as_tensor(v, device=dev)
+                     for k, v in clips.items()}
+        kept = [] if self.time_stages else None
+
+        def stage(name):
+            return profiling.span(name, device=True, keep=kept)
+
         with torch.no_grad():
-            result = self._generate(normalize_batch(clips), clock)
-        if self.time_stages:
-            self.stage_ms = clock.totals_ms()
+            result = self._generate(normalize_batch(clips), stage)
+        if kept is not None:
+            self.stage_ms = {}
+            for s in kept:
+                key = STAGES[s.name]
+                self.stage_ms[key] = self.stage_ms.get(key, 0.0) + s.stream_ms
         return result
 
     def _generate(self, clip: Dict[str, torch.Tensor], stage):
@@ -154,11 +139,11 @@ class VideoGenerator:
         engine = pipe.flow_engine
         S = pipe.cfg.image_size
         n, T = clip["tgt_iuv255"].shape[:2]
-        with stage("accumulate+inpaint"):
+        with stage("gen.texture"):
             inpainted, _ = pipe.prepare_textures(          # (n, P, p, p, 3)
                 clip["src_parts"][:, 0], clip["ref_mask"][:, 0],
                 clip["src_mask_parts"][:, 0])
-        with stage("background CRN"):
+        with stage("gen.background"):
             bg_out = pipe.bg(to_nchw(clip["bg_incomplete"][:, 0]), S)
 
         chosen = clip["chosen_frames"].long()         # (n, R)
@@ -168,13 +153,11 @@ class VideoGenerator:
         clip_ids = torch.arange(n, device=chosen.device)[:, None]
 
         # the n*R source poses need projected face vertices only
-        with stage("flow branch"):
+        with stage("gen.flow"):
             pro_index = torch.clamp(chosen, 0, T - 1)
-            src_f2pts_all = engine.project_faces(
+            src_f2pts_all = engine.source_points(     # (n*R, F, 3, 2)
                 cams[clip_ids, pro_index].flatten(0, 1),
-                verts[clip_ids, pro_index].flatten(0, 1))[..., 0:2]
-            src_f2pts_all = src_f2pts_all * src_f2pts_all.new_tensor(
-                [1.0, -1.0])                          # (n*R, F, 3, 2)
+                verts[clip_ids, pro_index].flatten(0, 1))
 
         def nearest_ref(i: torch.Tensor) -> torch.Tensor:
             """Frame ids (f,) -> (n*f,) index of each clip's nearest
@@ -184,10 +167,10 @@ class VideoGenerator:
             return (r + R * clip_ids).flatten()
 
         def bc_warp(src_pro, fim, wim):
-            flow = cal_bc_transform(src_f2pts_all[src_pro], fim, wim)
-            return engine.warp_image(src_imgs[src_pro], flow)
+            return engine.bc_warp(src_imgs[src_pro], src_f2pts_all[src_pro],
+                                  fim, wim)
 
-        with stage("texture warp"):
+        with stage("gen.warp"):
             if self.warp_mode == "lut":
                 warp_src = build_texture_warp_lut(inpainted)
             else:
@@ -203,7 +186,7 @@ class VideoGenerator:
 
         frame_ids = torch.arange(T, device=chosen.device)
         if self.flow_mode == "batch":
-            with stage("flow branch"):
+            with stage("gen.flow"):
                 _, fim_all, wim_all = engine.render_fim_wim(
                     cams.flatten(0, 1), verts.flatten(0, 1))
                 tsf_all = bc_warp(nearest_ref(frame_ids), fim_all, wim_all)
@@ -214,13 +197,13 @@ class VideoGenerator:
             i = frame_ids[t0:t0 + fb]
             # a clip's frames stacked along rows share its warp table
             iuv255 = clip["tgt_iuv255"][:, t0:t0 + fb].flatten(1, 2)
-            with stage("texture warp"):
+            with stage("gen.warp"):
                 if self.warp_mode == "lut":
                     warped = texture_warp_lut(warp_src, iuv255)
                 else:
                     warped = texture_warp_atlas(warp_src, iuv255)
                 warped = warped.unflatten(1, (fb, S)).flatten(0, 1)
-            with stage("refine CRN+fuse"):
+            with stage("gen.refine"):
                 refined, fg_mask = pipe.refine(to_nchw(warped), S)
                 fg = fg_mask.unflatten(0, (n, fb))
                 fusion = (refined.unflatten(0, (n, fb)) * fg
@@ -228,11 +211,11 @@ class VideoGenerator:
             if self.flow_mode == "batch":
                 tsf = frames(tsf_all, t0)
             else:
-                with stage("flow branch"):
+                with stage("gen.flow"):
                     _, fim, wim = engine.render_fim_wim(
                         frames(cams, t0), frames(verts, t0))
                     tsf = bc_warp(nearest_ref(i), fim, wim)
-            with stage("propagation"):
+            with stage("gen.propagation"):
                 out = pipe.pro(fusion, tsf,
                                to_nchw(frames(clip["tgt_iuv"], t0)),
                                to_nchw(frames(clip["smpl_mask"], t0)),

@@ -18,6 +18,7 @@ import torch
 from jafpro_tpu_torch.data.shardio import (
     U8_SYMMETRIC_FIELDS, U8_UNIT_FIELDS)
 from jafpro_tpu_torch.parallel.mesh import active_mesh, reduce_gradients
+from jafpro_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,12 +82,13 @@ class TrainState:
         ``.grad`` is touched. Inside a data-parallel step each gradient is
         averaged over the ranks (``parallel.mesh.reduce_gradients``)."""
         flat = [p for n in names for p in self.params[n]]
-        gs = torch.autograd.grad(loss, flat, allow_unused=True)
-        gs = [torch.zeros_like(p) if g is None else g
-              for p, g in zip(flat, gs)]
-        mesh = active_mesh()
-        if mesh is not None:
-            reduce_gradients(gs, mesh)
+        with span("train.backward", device=True, item=names):
+            gs = torch.autograd.grad(loss, flat, allow_unused=True)
+            gs = [torch.zeros_like(p) if g is None else g
+                  for p, g in zip(flat, gs)]
+            mesh = active_mesh()
+            if mesh is not None:
+                reduce_gradients(gs, mesh)
         out, i = {}, 0
         for n in names:
             k = len(self.params[n])
@@ -95,13 +97,16 @@ class TrainState:
         return out
 
     def apply_gradients(self, grads: Mapping[str, Sequence[torch.Tensor]]):
-        for name, gs in grads.items():
-            for p, g in zip(self.params[name], gs):
-                p.grad = g
-            self.opts[name].step()
-            self.opts[name].zero_grad(set_to_none=True)
-            if name in self.scheds:
-                self.scheds[name].step()
+        with span("train.update", device=True) as sp:
+            if sp:
+                sp.item = tuple(grads)
+            for name, gs in grads.items():
+                for p, g in zip(self.params[name], gs):
+                    p.grad = g
+                self.opts[name].step()
+                self.opts[name].zero_grad(set_to_none=True)
+                if name in self.scheds:
+                    self.scheds[name].step()
         self.step += 1
         return self
 

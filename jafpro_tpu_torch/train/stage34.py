@@ -24,6 +24,7 @@ computed on a detached crop (``train/4:399``), the stage-3 one is not
 
 from __future__ import annotations
 
+import itertools
 from typing import Tuple
 
 import torch
@@ -32,6 +33,7 @@ from jafpro_tpu_torch.data.texture import parts_to_atlas, texture_warp_atlas
 from jafpro_tpu_torch.losses import bce, bce_masked, vgg_l1_loss
 from jafpro_tpu_torch.pipeline import crop_faces, to_nchw, to_nhwc
 from jafpro_tpu_torch.train.common import TrainState, normalize_batch
+from jafpro_tpu_torch.utils.profiling import span
 
 
 def stage3_lrs():
@@ -94,53 +96,65 @@ def _make_gan_step(pipe, *, with_propagation: bool,
         return total, {"loss": total, "recon": recon, "G": err_g,
                        "FG": f_err_g}
 
+    iterations = itertools.count()
+
     def step(state: TrainState, batch):
+        with span("train.step", device=True, item=next(iterations)):
+            return step_body(state, batch)
+
+    def step_body(state: TrainState, batch):
         batch = normalize_batch(batch)
         tsf = None
         if with_propagation:
-            with torch.no_grad():
+            with span("train.flow", device=True), torch.no_grad():
                 tsf = to_nhwc(pipe.flow_engine(
                     to_nchw(batch["prev_img"]), batch["prev_cam"],
                     batch["prev_verts"], batch["tgt_cam"],
                     batch["tgt_verts"]))
 
-        # ---- the generator forward, once ----
-        final = _generator_forward(pipe, batch,
-                                   with_propagation=with_propagation,
-                                   tsf=tsf)
-        fake = final.detach()
-        bbox = batch["face_bbox"]
-        face_valid = bbox[:, 1] > bbox[:, 0]
-        face_real = crop_faces(batch["tgt_img"], bbox, face_size)
-        face_fake = crop_faces(fake, bbox, face_size)
-        face_iuv = crop_faces(batch["tgt_iuv"], bbox, face_size,
-                              mode="nearest")
-        B = fake.shape[0]
-        ones = torch.ones((B, 1), dtype=fake.dtype, device=fake.device)
-        zeros = torch.zeros((B, 1), dtype=fake.dtype, device=fake.device)
+        # ---- the generator forward, once, and the crops of its output
+        # that the discriminators take ----
+        with span("train.gen_forward", device=True):
+            final = _generator_forward(pipe, batch,
+                                       with_propagation=with_propagation,
+                                       tsf=tsf)
+            fake = final.detach()
+            bbox = batch["face_bbox"]
+            face_valid = bbox[:, 1] > bbox[:, 0]
+            face_real = crop_faces(batch["tgt_img"], bbox, face_size)
+            face_fake = crop_faces(fake, bbox, face_size)
+            face_iuv = crop_faces(batch["tgt_iuv"], bbox, face_size,
+                                  mode="nearest")
+            B = fake.shape[0]
+            ones = torch.ones((B, 1), dtype=fake.dtype, device=fake.device)
+            zeros = torch.zeros((B, 1), dtype=fake.dtype, device=fake.device)
         metrics = {}
 
         # ---- face discriminator ----
         fd_val = torch.zeros((), device=fake.device)
         for _ in range(face_d_steps):
-            fd_val = bce_masked(d_prob(pipe.FD, face_real, face_iuv), ones,
-                                face_valid) + bce_masked(
-                d_prob(pipe.FD, face_fake, face_iuv), zeros, face_valid)
-            state.apply_gradients(state.grads(fd_val, ("FD",)))
+            with span("train.fd", device=True):
+                fd_val = bce_masked(d_prob(pipe.FD, face_real, face_iuv),
+                                    ones, face_valid) + bce_masked(
+                    d_prob(pipe.FD, face_fake, face_iuv), zeros, face_valid)
+                state.apply_gradients(state.grads(fd_val, ("FD",)))
         metrics["FD"] = fd_val.detach()
 
         # ---- image discriminator ----
         d_val = torch.zeros((), device=fake.device)
         for _ in range(img_d_steps):
-            d_val = bce(d_prob(pipe.D, batch["tgt_img"],
-                               batch["src_img_first"]), ones) + bce(
-                d_prob(pipe.D, fake, batch["src_img_first"]), zeros)
-            state.apply_gradients(state.grads(d_val, ("D",)))
+            with span("train.d", device=True):
+                d_val = bce(d_prob(pipe.D, batch["tgt_img"],
+                                   batch["src_img_first"]), ones) + bce(
+                    d_prob(pipe.D, fake, batch["src_img_first"]), zeros)
+                state.apply_gradients(state.grads(d_val, ("D",)))
         metrics["D"] = d_val.detach()
 
         # ---- generator: the tail with the updated D and FD, then back
         # through the saved generator graph ----
-        total, g_metrics = g_loss_tail(final, batch, face_iuv, face_valid)
+        with span("train.g_loss", device=True):
+            total, g_metrics = g_loss_tail(final, batch, face_iuv,
+                                           face_valid)
         state.apply_gradients(state.grads(total, gen_modules))
         metrics.update({k: v.detach() for k, v in g_metrics.items()})
         return state, metrics
