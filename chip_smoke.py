@@ -8,8 +8,9 @@ Phases, each of which raises on failure (nothing is caught):
 1. Environment: torch/CUDA versions, ``nvcc --version``, the card's name
    and power limit; needs one Hopper card (compute capability 9.0).
 2. Build: compile every native source of ``jafpro_tpu_torch/csrc/`` at
-   once, one compiler process each: ``rasterizer.cu`` and
-   ``correlation.cu`` with nvcc, the shard reader ``shardio.cc`` with g++.
+   once, one compiler process each: ``rasterizer.cu``,
+   ``correlation.cu`` and ``norm.cu`` with nvcc, the shard reader
+   ``shardio.cc`` with g++.
 3. Kernel vs plain version on the card: random scenes (back faces, faces
    crossing near and far, coplanar z-fighting pairs, degenerate faces, a
    face count that is not a multiple of 256), the full 30-frame,
@@ -149,6 +150,24 @@ Phases, each of which raises on failure (nothing is caught):
    against per-clip generation within 1e-4. (e) With two or more cards,
    (b) over NCCL, one card per rank; with one, a line says it was not
    run.
+12. The ConvBlock norm (``csrc/norm.cu``, ``ops/norm.py``): the 26
+   ``SampleLayerNorm`` inputs of one refine-CRN forward over a served clip's
+   30 frames and of one background-CRN forward over 1 image, in bfloat16
+   (recorded from ``CRNSmaller`` on a channels-last label, as the generator
+   hands it over), each through the kernels and through the plain form:
+   the rounded pre-activation within one bfloat16 ulp (values under 1/64
+   taken at 1/64), the output the LeakyReLU of the kernels' own
+   pre-activation bit for bit, 26 ``nets.norm`` spans in a traced forward
+   of each; the kernels' time per
+   clip against the plain form's and the bytes bound (each input read
+   once, each output written once, at 3.35 TB/s). Then the 26 inputs of a
+   stage-4 step's refine CRN (4 frames, under autograd), forward and
+   backward through the kernels against autograd of the plain form: dx
+   within 1e-2 relative L2, dgamma and dbeta within 1e-3. The kernels'
+   record is ``sample_norm`` in the kernels line, with the kernel launches
+   of phase 5's clip (2 a call, 52 calls: 26 a CRN) and of one bfloat16
+   stage-4 step of phase 7, forward and backward; phase 6 checks 104 a
+   served batch and none backward.
 
 Phase 3 also runs the kernel with its depth output on every scene (depth
 within 1e-6 relative of the plain version's, 0 at background; whether it
@@ -190,7 +209,8 @@ KERNEL_REPLACES = "jafpro_tpu/geometry/rasterizer_pallas.py:123"
 CORR_SOURCE = "jafpro_tpu_torch/csrc/correlation.cu"
 CORR_REPLACES = "jafpro_tpu/ops/correlation.py:19"
 # every source under csrc/, built together in phase 2
-NATIVE_SOURCES = ("rasterizer.cu", "correlation.cu", "shardio.cc")
+NORM_SOURCE = "jafpro_tpu_torch/csrc/norm.cu"
+NATIVE_SOURCES = ("rasterizer.cu", "correlation.cu", "norm.cu", "shardio.cc")
 # PyTorch's own TF32 settings, those the CLI runs under
 TF32_DEFAULTS = (torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32)
@@ -597,6 +617,7 @@ def serve_pack(cfg, engine, seed: int, pack_dir: str, clips_per_batch: int,
     per batch in each."""
     from jafpro_tpu_torch import cli
     from jafpro_tpu_torch.geometry import rasterizer as R
+    from jafpro_tpu_torch.ops import norm as N
     from jafpro_tpu_torch.pipeline import JAFProPipeline
 
     vids, load = cli.open_clip_source(cfg, cfg.maximum_ref_frames, pack_dir)
@@ -612,8 +633,10 @@ def serve_pack(cfg, engine, seed: int, pack_dir: str, clips_per_batch: int,
     for run in ("first", "warm"):
         torch.cuda.reset_peak_memory_stats()
         R.rasterize_fim_wim.launches = 0
+        N.sample_norm.launches = N.sample_norm.backward_launches = 0
         st = cli.serve(groups, load, cli.generate_group(gen), write)
         launches = R.rasterize_fim_wim.launches
+        norms = (N.sample_norm.launches, N.sample_norm.backward_launches)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[serve] {what} {run} loop: {len(vids)} clips in {len(groups)} "
             f"batches of {clips_per_batch}: "
@@ -621,9 +644,13 @@ def serve_pack(cfg, engine, seed: int, pack_dir: str, clips_per_batch: int,
             f"({st['loop_seconds']:.4f} s); per batch load "
             f"{st['load_ms']:.2f} ms, compute {st['compute_ms']:.2f} ms, "
             f"write {st['write_ms']:.2f} ms; rasterize_fim_wim launches "
-            f"{launches}; peak memory {peak:.2f} GiB [{card}]")
+            f"{launches}; sample_norm kernel launches (forward, backward) "
+            f"{norms}; peak memory {peak:.2f} GiB [{card}]")
         if launches != len(groups):
             raise AssertionError("a batch did not rasterize in one launch")
+        if norms != (2 * 2 * NORM_CALLS * len(groups), 0):
+            raise AssertionError("a batch's two CRNs did not take the norm "
+                                 "kernels in every call")
     for vid in vids:
         for k, c in (("final", 3), ("coarse", 3), ("mask", 1), ("tsf", 3)):
             x = written[vid][k]
@@ -823,6 +850,7 @@ def train_stage(cfg, stage: int, shard_dir: str, engine, verts, seed: int,
 
     from jafpro_tpu_torch import cli
     from jafpro_tpu_torch.geometry import rasterizer as R
+    from jafpro_tpu_torch.ops import norm as N
     from jafpro_tpu_torch.pipeline import JAFProPipeline
     from jafpro_tpu_torch.train.common import (
         TrainState, apply_curriculum, to_device)
@@ -840,7 +868,7 @@ def train_stage(cfg, stage: int, shard_dir: str, engine, verts, seed: int,
     before = snapshot(pipe)
     poses = count_poses(engine)
     torch.cuda.reset_peak_memory_stats()
-    times, launches, losses = [], [], []
+    times, launches, losses, norms = [], [], [], []
     try:
         for _ in range(4):
             batch = to_device(apply_curriculum(dict(next_raw()), stage, rng,
@@ -848,11 +876,14 @@ def train_stage(cfg, stage: int, shard_dir: str, engine, verts, seed: int,
                               torch.device("cuda"))
             torch.cuda.synchronize()
             R.rasterize_fim_wim.launches = 0
+            N.sample_norm.launches = N.sample_norm.backward_launches = 0
             t0 = time.perf_counter()
             state, m = step(state, batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             launches.append(R.rasterize_fim_wim.launches)
+            norms.append((N.sample_norm.launches,
+                          N.sample_norm.backward_launches))
             losses.append({k: float(v) for k, v in m.items()})
     finally:
         close()
@@ -865,7 +896,8 @@ def train_stage(cfg, stage: int, shard_dir: str, engine, verts, seed: int,
         f"{s_step:.4f} s/step, {cfg.batch_size / s_step:.3f} samples/s "
         f"(median of 3); peak memory {peak:.2f} GiB; rasterize_fim_wim "
         f"launches per step {launches}, poses per launch {poses}; "
-        f"moved {sorted(moved)}; unchanged {sorted(same)} [{card}]")
+        f"sample_norm kernel launches per step (forward, backward) "
+        f"{norms}; moved {sorted(moved)}; unchanged {sorted(same)} [{card}]")
     log(f"[train] stage {stage} {dtype} losses: " + "; ".join(
         ", ".join(f"{k} {v:.5g}" for k, v in m.items()) for m in losses))
     if not all(np.isfinite(v) for m in losses for v in m.values()):
@@ -879,9 +911,13 @@ def train_stage(cfg, stage: int, shard_dir: str, engine, verts, seed: int,
         if launches != [1] * 4 or poses != [cfg.batch_size] * 4:
             raise AssertionError("a stage-4 step did not rasterize the "
                                  "batch's poses in one kernel launch")
+        if len(set(norms)) != 1 or not norms[0][1]:
+            raise AssertionError("the stage-4 steps' norm kernel launches "
+                                 f"{norms} differ or hold no backward")
     elif any(launches):
         raise AssertionError(f"stage {stage} rasterized")
-    return {"s_step": s_step, "peak": peak, "launches": sum(launches)}
+    return {"s_step": s_step, "peak": peak, "launches": sum(launches),
+            "norms": norms[-1]}
 
 
 def sgd_setup(dev, seed: int, batch: int, ragged: bool = False) -> tuple:
@@ -977,9 +1013,10 @@ def phase_train_reference(seed: int, stages=(1, 4)) -> None:
                                  "with the CPU's")
 
 
-def phase_train(seed: int, clip: dict, engine, card: str) -> int:
+def phase_train(seed: int, clip: dict, engine, card: str) -> tuple:
     """Phase 7 at ``Config()`` widths. Returns the rasterizer launches of
-    the stage-4 runs."""
+    the stage-4 runs and the norm kernels' (forward, backward) launches of
+    one bfloat16 stage-4 step."""
     from jafpro_tpu_torch.config import Config
 
     cfg = Config()
@@ -1009,7 +1046,8 @@ def phase_train(seed: int, clip: dict, engine, card: str) -> int:
             os.path.join(root, "interval"), engine, verts[0], seed, card)
     phase_train_reference(seed)
     log(f"[train] phase 7 took {time.perf_counter() - t0:.1f} s")
-    return sum(v["launches"] for k, v in out.items() if k[0] == 4)
+    return (sum(v["launches"] for k, v in out.items() if k[0] == 4),
+            out[(4, "bfloat16")]["norms"])
 
 
 def median_ms(fn, n: int = 3) -> tuple:
@@ -2307,6 +2345,184 @@ def phase_dp(seed: int, clip: dict, faces: np.ndarray, alone: dict,
     return launches
 
 
+# --------------------------------------------------------------- phase 12
+
+NORM_FRAMES = 30    # a served clip's frames through the refine CRN
+NORM_TRAIN_FRAMES = 4   # a stage-4 step's frames through the refine CRN
+NORM_CALLS = 26     # SampleLayerNorm calls of one CRNSmaller forward
+# gradients against autograd of the plain form, relative L2 (bfloat16;
+# tests/test_torch_port_norm_cuda.py states why)
+NORM_DX_RTOL = 1e-2
+NORM_PARAM_RTOL = 1e-3
+
+
+def crn_norm_inputs(seed: int, fg: bool, T: int, S: int,
+                    grad: bool = False) -> list:
+    """The inputs of the 26 ``SampleLayerNorm`` calls of one ``CRNSmaller``
+    forward (``fg``: the refine CRN, else the background's) over ``T``
+    images at ``S``², bfloat16, on a channels-last label as the generator
+    hands it over, with gamma and beta; ``grad``: the forward under
+    autograd, as training runs it. A traced forward must leave 26
+    ``nets.norm`` spans."""
+    from jafpro_tpu_torch.models import common
+    from jafpro_tpu_torch.models.crn import CRNSmaller
+    from jafpro_tpu_torch.utils import profiling
+
+    net = CRNSmaller(fg=fg, compute_dtype=torch.bfloat16)
+    common.init_params_(net, torch.Generator().manual_seed(seed))
+    net.to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    label = torch.rand(T, S, S, 3, generator=g, device="cuda").permute(
+        0, 3, 1, 2)
+    seen = []
+
+    def keep(module, args):
+        seen.append((args[0].detach().clone(), module.gamma.detach(),
+                     module.beta.detach()))
+
+    hooks = [m.register_forward_pre_hook(keep) for m in net.modules()
+             if isinstance(m, common.SampleLayerNorm)]
+    with torch.set_grad_enabled(grad):
+        net(label, S)
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        t0 = time.time_ns()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]):
+            net(label, S)
+            torch.cuda.synchronize()
+            names = [r["name"] for r in profiling.spans(t0)]
+    n_spans = names.count("nets.norm")
+    log(f"[norm] a traced {'refine' if fg else 'background'} CRN forward "
+        f"over {T} images: {n_spans} nets.norm spans")
+    if n_spans != NORM_CALLS or len(seen) != NORM_CALLS:
+        raise AssertionError("not every SampleLayerNorm call of the CRN "
+                             "took the kernels")
+    return seen
+
+
+def norm_forward_ulp(calls: list) -> tuple:
+    """The kernels against the plain form on ``calls``: the worst distance
+    in bfloat16 ulps (values under 1/64 taken at 1/64) of the rounded
+    pre-activation and of the LeakyReLU's output, and whether the kernels'
+    output is ``F.leaky_relu`` of their own pre-activation bit for bit.
+    One ulp of a negative pre-activation can be two of its LeakyReLU:
+    0.01 · x crosses a binade where x does not."""
+    import torch.nn.functional as F
+
+    from jafpro_tpu_torch.ops import norm as N
+
+    def ulps(got, want):
+        m = want.float().abs().clamp_min(1.0 / 64)
+        ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+        return ((got.float() - want.float()).abs() / ulp).max().item()
+
+    worst_pre = worst_out = 0.0
+    same = True
+    for x, gamma, beta in calls:
+        with torch.no_grad():
+            pre = N.sample_norm(x, gamma, beta, 1, 1e-5)
+            y = N.sample_norm(x, gamma, beta, 1, 1e-5, 0.01)
+            want = N.sample_norm_plain(x, gamma, beta, 1, 1e-5)
+            worst_pre = max(worst_pre, ulps(pre, want))
+            worst_out = max(worst_out, ulps(y, F.leaky_relu(want, 0.01)))
+            same = same and torch.equal(y, F.leaky_relu(pre, 0.01))
+    return worst_pre, worst_out, same
+
+
+def norm_backward_check(seed: int, calls: list) -> dict:
+    """Forward and backward of each call through the kernels against
+    autograd of the plain form, an incoming bfloat16 gradient drawn from
+    ``seed`` (zero where the plain form's pre-activation lies within 1e-3
+    of 0, as the card test has it): the worst relative L2 of dx, dgamma,
+    dbeta."""
+    from jafpro_tpu_torch.ops import norm as N
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    worst = {"dx": 0.0, "dgamma": 0.0, "dbeta": 0.0}
+    for x, gamma, beta in calls:
+        with torch.no_grad():
+            pre = N.sample_norm_plain(x, gamma, beta, 1, 1e-5)
+        dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+        dy = torch.where(pre.float().abs() < 1e-3, torch.zeros_like(dy), dy)
+        del pre
+        got, want = [], []
+        for fn, out in ((N.sample_norm, got), (N.sample_norm_plain, want)):
+            xa, ga, ba = (t.detach().clone().requires_grad_()
+                          for t in (x, gamma, beta))
+            fn(xa, ga, ba, 1, 1e-5, 0.01).backward(dy)
+            out.extend((xa.grad, ga.grad, ba.grad))
+        for k, a, b in zip(worst, got, want):
+            worst[k] = max(worst[k], rel_l2(a, b))
+    return worst
+
+
+def phase_norm(seed: int, card: str) -> dict:
+    """Phase 12. Returns the norm kernels' JSON record."""
+    from jafpro_tpu_torch.ops import norm as N
+
+    t_phase = time.perf_counter()
+    T, S = NORM_FRAMES, 256
+    calls = crn_norm_inputs(seed, True, T, S)
+    bg = crn_norm_inputs(seed + 1, False, 1, S)
+    fwd = {"refine CRN, 30 frames": norm_forward_ulp(calls),
+           "background CRN, 1 image": norm_forward_ulp(bg)}
+    log("[norm] against the plain form, worst bfloat16 ulp of the "
+        "pre-activation / of the LeakyReLU's output, and the output the "
+        "LeakyReLU of the kernels' own pre-activation bit for bit: "
+        + "; ".join(f"{k} {p:.3f} / {o:.3f}, {same}"
+                    for k, (p, o, same) in fwd.items()))
+    worst = max(p for p, _, _ in fwd.values())
+    if worst > 1.0 or not all(same for _, _, same in fwd.values()):
+        raise AssertionError("the norm kernels are further than one ulp "
+                             "from the plain form")
+    layouts = sum(not x.is_contiguous() for x, _, _ in calls)
+    elems = sum(x.numel() for x, _, _ in calls)
+    bound_ms = 1e3 * sum(2 * x.numel() * x.element_size()
+                         for x, _, _ in calls) / PEAK_BYTES_PER_S
+
+    def kernels():
+        for x, gamma, beta in calls:
+            N.sample_norm(x, gamma, beta, 1, 1e-5, 0.01)
+
+    def plain():
+        for x, gamma, beta in calls:
+            N.sample_norm_plain(x, gamma, beta, 1, 1e-5, 0.01)
+
+    with torch.no_grad():
+        ms = median_cuda_ms(kernels)
+        plain_ms = median_cuda_ms(plain, 3, 1)
+    log(f"[norm] one clip's refine CRN ({T} frames, {len(calls)} calls, "
+        f"{layouts} channels-last, {elems / 1e9:.3f} G elements, "
+        f"bfloat16): kernels {ms:.3f} ms, plain {plain_ms:.3f} ms, bytes "
+        f"bound {bound_ms:.3f} ms (share {bound_ms / ms:.3f}) [{card}]")
+    del calls, bg
+    torch.cuda.empty_cache()
+
+    Tt = NORM_TRAIN_FRAMES
+    train = crn_norm_inputs(seed + 2, True, Tt, S, grad=True)
+    bwd = norm_backward_check(seed + 3, train)
+    log(f"[norm] a stage-4 step's refine CRN ({Tt} frames, {len(train)} "
+        f"calls, {sum(not x.is_contiguous() for x, _, _ in train)} "
+        f"channels-last, bfloat16), forward and backward against autograd "
+        f"of the plain form, worst relative L2: dx {bwd['dx']:.3e} "
+        f"(tolerance {NORM_DX_RTOL}), dgamma {bwd['dgamma']:.3e}, dbeta "
+        f"{bwd['dbeta']:.3e} (tolerance {NORM_PARAM_RTOL})")
+    if not (bwd["dx"] <= NORM_DX_RTOL and max(
+            bwd["dgamma"], bwd["dbeta"]) <= NORM_PARAM_RTOL):
+        raise AssertionError("the norm's backward kernels disagree with "
+                             "autograd of the plain form")
+    log(f"[norm] phase 12 took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return {"name": "sample_norm", "route": "cuda", "source": NORM_SOURCE,
+            "replaces": None, "max_ulp": worst,
+            "max_ulp_out": max(o for _, o, _ in fwd.values()),
+            "bwd_rel_l2": bwd, "ms_per_clip": ms,
+            "plain_ms_per_clip": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2320,6 +2536,7 @@ def main(argv=None) -> int:
     from jafpro_tpu_torch.geometry import rasterizer as R
     from jafpro_tpu_torch.geometry.flow import SMPLFlowEngine
     from jafpro_tpu_torch.infer import VideoGenerator
+    from jafpro_tpu_torch.ops import norm as N
     from jafpro_tpu_torch.pipeline import JAFProPipeline
 
     dev = torch.device("cuda")
@@ -2344,12 +2561,18 @@ def main(argv=None) -> int:
     gen = VideoGenerator(pipe, frame_batch=T, flow_mode="batch")
     torch.cuda.reset_peak_memory_stats()
     R.rasterize_fim_wim.launches = 0
+    N.sample_norm.launches = N.sample_norm.backward_launches = 0
     out = gen(clip)
     torch.cuda.synchronize()
     launches = R.rasterize_fim_wim.launches
-    log(f"[slice] main path: rasterize_fim_wim launches {launches}")
+    norm_launches = N.sample_norm.launches
+    log(f"[slice] main path: rasterize_fim_wim launches {launches}; "
+        f"sample_norm kernel launches {norm_launches}")
     if launches < 1:
         raise AssertionError("the main path never launched the kernel")
+    if norm_launches != 2 * 2 * NORM_CALLS:
+        raise AssertionError("a clip's two CRNs did not take the norm "
+                             "kernels in every call")
     check_outputs(out, T, S, "full-width clip")
     run_clip(gen, clip, T, S, "float32", card)
     per_frame = VideoGenerator(pipe)(clip)   # frame_batch 1, flow per frame
@@ -2374,7 +2597,7 @@ def main(argv=None) -> int:
     alone = phase_serve(args.seed, engine, card)
 
     # ---- phase 7: train ----
-    train_launches = phase_train(args.seed, clip, engine, card)
+    train_launches, norm_train = phase_train(args.seed, clip, engine, card)
 
     # ---- phase 8: the body path ----
     torch.backends.cudnn.allow_tf32 = False
@@ -2390,12 +2613,18 @@ def main(argv=None) -> int:
     # ---- phase 11: data parallelism ----
     dp_launches = phase_dp(args.seed, clip, faces, alone, card)
 
+    # ---- phase 12: the ConvBlock norm ----
+    norm_kernel = phase_norm(args.seed, card)
+
     kernels = [{
         "name": "rasterize_fim_wim", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches, "train_launches": train_launches,
         "body_launches": body_launches, "dp_launches": dp_launches,
-        **k}] + flow_kernels
+        **k}] + flow_kernels + [{
+        **norm_kernel, "launches": norm_launches,
+        "train_launches": norm_train[0],
+        "train_backward_launches": norm_train[1]}]
     log(f"[done] build {build_s:.2f} s, total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

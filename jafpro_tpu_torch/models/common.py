@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jafpro_tpu_torch.device import resolve_device
+from jafpro_tpu_torch.ops.norm import sample_norm
 from jafpro_tpu_torch.ops.sampling import resize_bilinear
 
 
@@ -156,7 +157,9 @@ class SampleLayerNorm(nn.Module):
     """The CRN's LayerNorm: per-sample statistics over all of (C, H, W)
     with Bessel-corrected std, (x - mean) / (std + eps), per-channel affine.
     ``groups`` P > 1: P parts packed part-major in the channels, each with
-    statistics of its own (P independent norms, as a vmap over parts)."""
+    statistics of its own (P independent norms, as a vmap over parts).
+    ``negative_slope``: a LeakyReLU of the result, in the same call
+    (``ops/norm.py``: the kernels on the card, the plain form elsewhere)."""
 
     def __init__(self, features: int, eps: float = 1e-5, groups: int = 1):
         super().__init__()
@@ -165,18 +168,9 @@ class SampleLayerNorm(nn.Module):
         self.gamma = nn.Parameter(torch.empty(groups * features))
         self.beta = nn.Parameter(torch.zeros(groups * features))
 
-    def forward(self, x):
-        x32 = x.float()
-        dims = tuple(range(1, x.ndim))
-        if self.groups > 1:
-            x32 = x32.reshape(x.shape[0], self.groups, -1)
-            dims = (2,)
-        n = math.prod(x32.shape[d] for d in dims)
-        mean = x32.mean(dim=dims, keepdim=True)
-        var = torch.square(x32 - mean).sum(dim=dims, keepdim=True) / (n - 1)
-        y = ((x32 - mean) / (torch.sqrt(var) + self.eps)).reshape(x.shape)
-        shape = (1, -1) + (1,) * (x.ndim - 2)
-        return (y * self.gamma.view(shape) + self.beta.view(shape)).to(x.dtype)
+    def forward(self, x, negative_slope: Optional[float] = None):
+        return sample_norm(x, self.gamma, self.beta, self.groups, self.eps,
+                           negative_slope)
 
 
 class ConvBlock(nn.Module):
@@ -199,8 +193,7 @@ class ConvBlock(nn.Module):
     def forward(self, x):
         for i in range(self.n_repeats):
             x = getattr(self, f"Conv_{i}")(x)
-            x = getattr(self, f"SampleLayerNorm_{i}")(x)
-            x = F.leaky_relu(x, 0.01)
+            x = getattr(self, f"SampleLayerNorm_{i}")(x, 0.01)
         return x
 
 
