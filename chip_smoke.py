@@ -1305,15 +1305,12 @@ def corr_bound_ms(shape, md: int, s2: int, itemsize: int,
                   backward: bool) -> tuple:
     """(least ms, "bytes" or "operations") of the forward or the backward
     on the card: float32 multiply-adds on the CUDA cores against each
-    input read once and each output written once."""
-    from jafpro_tpu_torch.ops.correlation import window
+    input read once and each output written once (B4's operations and
+    bytes as the benchmark counts them, ``benchmark/flow_counts.py``)."""
+    from benchmark import flow_counts
 
-    B, C, H, W = shape
-    D = window(md, s2) ** 2
-    ops = 2 * B * C * H * W * D * (2 if backward else 1)
-    feat, vol = B * C * H * W, B * D * H * W
-    nbytes = itemsize * ((vol + 2 * feat + 2 * feat) if backward
-                         else (2 * feat + vol))
+    ops = flow_counts.b4_flops(shape, md, s2, backward)
+    nbytes = flow_counts.b4_bytes(shape, md, s2, itemsize, backward)
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -1323,11 +1320,10 @@ def corr_tc_bound_ms(shape, md: int, s2: int, backward: bool) -> float:
     """The 3xTF32 tensor-core bound: three TF32 products per float32
     multiply-add of the function at the dense TF32 rate (the kernel's
     banded tiles compute more; not the reported bound)."""
-    from jafpro_tpu_torch.ops.correlation import window
+    from benchmark import flow_counts
 
-    B, C, H, W = shape
-    ops = 2 * B * C * H * W * window(md, s2) ** 2 * (2 if backward else 1)
-    return 1e3 * 3 * ops / PEAK_TF32_FLOPS
+    return 1e3 * 3 * flow_counts.b4_flops(shape, md, s2,
+                                          backward) / PEAK_TF32_FLOPS
 
 
 def corr_reported_bound(shape, md: int, s2: int, backward: bool) -> tuple:
@@ -1336,15 +1332,12 @@ def corr_reported_bound(shape, md: int, s2: int, backward: bool) -> tuple:
     time and the lower of the two operation times, FP32 on the CUDA cores
     (``corr_bound_ms``) and 3xTF32 on the tensor cores
     (``corr_tc_bound_ms``, the kernel's own arithmetic)."""
-    from jafpro_tpu_torch.ops.correlation import window
+    from benchmark import flow_counts
 
-    B, C, H, W = shape
-    D = window(md, s2) ** 2
-    feat, vol = B * C * H * W, B * D * H * W
-    nbytes = 4 * ((vol + 4 * feat) if backward else (2 * feat + vol))
-    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    flops = 2 * feat * D * (2 if backward else 1)
-    ops = {"FP32 CUDA cores": 1e3 * flops / PEAK_FP32_FLOPS,
+    t_bytes = 1e3 * flow_counts.b4_bytes(shape, md, s2, 4,
+                                         backward) / PEAK_BYTES_PER_S
+    ops = {"FP32 CUDA cores": 1e3 * flow_counts.b4_flops(
+        shape, md, s2, backward) / PEAK_FP32_FLOPS,
            "3xTF32 tensor cores": corr_tc_bound_ms(shape, md, s2, backward)}
     rate = min(ops, key=ops.get)
     if t_bytes >= ops[rate]:

@@ -9,6 +9,13 @@
 - ``flownet2_preprocess``, ``epe`` and ``multiscale_flow_loss``, the
   harness's loss (reference ``flownet2_pytorch/losses.py``).
 
+``batch_norm=False`` builds a net as flownet2-pytorch builds it with
+``batchNorm`` False, its default: every conv block a biased conv and its
+LeakyReLU, no batch norm. The blocks' outputs then stay in
+``compute_dtype``: FlowNetC's correlation runs in it, and the decoders
+(``deconv*``, ``predict_flow*``) promote their input to their float32
+weights, as flax promotes a layer without a ``dtype``.
+
 Batch norm is ``FlaxBatchNorm2d``: running statistics in ``eval()``, the
 batch's (and flax's update of the running ones) in ``train()``, which is
 the JAX package's ``train`` flag; each net starts in ``eval()``, as that
@@ -37,6 +44,7 @@ from jafpro_tpu_torch.ops.correlation import correlation
 from jafpro_tpu_torch.ops.image import channel_norm
 from jafpro_tpu_torch.ops.sampling import (
     resample2d, resize_bilinear, resize_nearest)
+from jafpro_tpu_torch.utils.profiling import span
 
 
 class _ConvBlock(nn.Module):
@@ -64,6 +72,11 @@ class _ConvBlock(nn.Module):
         return x
 
 
+def _promoted(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """``x`` in the promoted type of itself and ``layer``'s weight."""
+    return x.to(torch.promote_types(x.dtype, layer.weight.dtype))
+
+
 class _Deconv(nn.Module):
     """ConvTranspose(k4, s2, p1) + LeakyReLU(0.1)."""
 
@@ -72,7 +85,8 @@ class _Deconv(nn.Module):
         self.ConvTranspose_0 = nn.ConvTranspose2d(cin, features, 4, 2, 1)
 
     def forward(self, x):
-        return F.leaky_relu(self.ConvTranspose_0(x), 0.1)
+        return F.leaky_relu(
+            self.ConvTranspose_0(_promoted(x, self.ConvTranspose_0)), 0.1)
 
 
 class _PredictFlow(nn.Module):
@@ -81,16 +95,17 @@ class _PredictFlow(nn.Module):
         self.Conv_0 = nn.Conv2d(cin, 2, 3, padding=1)
 
     def forward(self, x):
-        return self.Conv_0(x)
+        return self.Conv_0(_promoted(x, self.Conv_0))
 
 
 def _up_flow(bias: bool = True) -> nn.ConvTranspose2d:
     return nn.ConvTranspose2d(2, 2, 4, 2, 1, bias=bias)
 
 
-def _add_blocks(net: nn.Module, table, compute_dtype) -> None:
+def _add_blocks(net: nn.Module, table, compute_dtype,
+                batch_norm: bool) -> None:
     for name, cin, cout, k, s in table:
-        net.add_module(name, _ConvBlock(cin, cout, k, s,
+        net.add_module(name, _ConvBlock(cin, cout, k, s, norm=batch_norm,
                                         compute_dtype=compute_dtype))
 
 
@@ -116,9 +131,10 @@ class FlowNetSD(nn.Module):
     """Input: (B, 6, H, W) image pair, H and W multiples of 64; returns
     flow2 (B, 2, H/4, W/4), or (flow2, ..., flow6) with ``train_mode``."""
 
-    def __init__(self, compute_dtype: Optional[torch.dtype] = None):
+    def __init__(self, compute_dtype: Optional[torch.dtype] = None,
+                 batch_norm: bool = True):
         super().__init__()
-        _add_blocks(self, _SD_ENCODER, compute_dtype)
+        _add_blocks(self, _SD_ENCODER, compute_dtype, batch_norm)
         self.predict_flow6 = _PredictFlow(1024)
         cin = 1024
         for lvl, skip, width in _DECODER:
@@ -126,7 +142,7 @@ class FlowNetSD(nn.Module):
             self.add_module(f"deconv{lvl}", _Deconv(cin, width))
             cat = skip + width + 2
             self.add_module(f"inter_conv{lvl}", _ConvBlock(
-                cat, width, act=False, bias=True))
+                cat, width, act=False, norm=batch_norm, bias=True))
             self.add_module(f"predict_flow{lvl}", _PredictFlow(width))
             cin = cat
         self.eval()
@@ -180,17 +196,18 @@ class FlowNetC(nn.Module):
 
     MAX_DISPLACEMENT, STRIDE2 = 20, 2
 
-    def __init__(self, compute_dtype: Optional[torch.dtype] = None):
+    def __init__(self, compute_dtype: Optional[torch.dtype] = None,
+                 batch_norm: bool = True):
         super().__init__()
         for sfx in ("a", "b"):
             _add_blocks(self, ((f"conv1{sfx}", 3, 64, 7, 2),
                                (f"conv2{sfx}", 64, 128, 5, 2),
                                (f"conv3{sfx}", 128, 256, 5, 2)),
-                        compute_dtype)
+                        compute_dtype, batch_norm)
         d = (2 * (self.MAX_DISPLACEMENT // self.STRIDE2) + 1) ** 2
         _add_blocks(self, (("conv_redir", 256, 32, 1, 1),
                            ("conv3_1", 32 + d, 256, 3, 1)) + _TAIL,
-                    compute_dtype)
+                    compute_dtype, batch_norm)
         _build_sc_decoder(self, up_bias=True)
         self.eval()
 
@@ -214,13 +231,14 @@ class FlowNetS(nn.Module):
     (B, ``input_channels``, H, W) stack; its ``up_flow*`` have no bias."""
 
     def __init__(self, input_channels: int = 12,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 batch_norm: bool = True):
         super().__init__()
         _add_blocks(self, (("conv1", input_channels, 64, 7, 2),
                            ("conv2", 64, 128, 5, 2),
                            ("conv3", 128, 256, 5, 2),
                            ("conv3_1", 256, 256, 3, 1)) + _TAIL,
-                    compute_dtype)
+                    compute_dtype, batch_norm)
         _build_sc_decoder(self, up_bias=False)
         self.eval()
 
@@ -238,20 +256,24 @@ class FlowNetFusion(nn.Module):
     outputs (reference ``networks/FlowNetFusion.py``): (B, 11, H, W) ->
     (B, 2, H, W)."""
 
-    def __init__(self, compute_dtype: Optional[torch.dtype] = None):
+    def __init__(self, compute_dtype: Optional[torch.dtype] = None,
+                 batch_norm: bool = True):
         super().__init__()
         _add_blocks(self, (("conv0", 11, 64, 3, 1), ("conv1", 64, 64, 3, 2),
                            ("conv1_1", 64, 128, 3, 1),
                            ("conv2", 128, 128, 3, 2),
-                           ("conv2_1", 128, 128, 3, 1)), compute_dtype)
+                           ("conv2_1", 128, 128, 3, 1)), compute_dtype,
+                    batch_norm)
         self.predict_flow2 = _PredictFlow(128)
         self.up_flow2 = _up_flow()
         self.deconv1 = _Deconv(128, 32)
-        self.inter_conv1 = _ConvBlock(128 + 32 + 2, 32, act=False, bias=True)
+        self.inter_conv1 = _ConvBlock(128 + 32 + 2, 32, act=False,
+                                      norm=batch_norm, bias=True)
         self.predict_flow1 = _PredictFlow(32)
         self.up_flow1 = _up_flow()
         self.deconv0 = _Deconv(128 + 32 + 2, 16)
-        self.inter_conv0 = _ConvBlock(64 + 16 + 2, 16, act=False, bias=True)
+        self.inter_conv0 = _ConvBlock(64 + 16 + 2, 16, act=False,
+                                      norm=batch_norm, bias=True)
         self.predict_flow0 = _PredictFlow(16)
         self.eval()
 
@@ -271,21 +293,29 @@ class FlowNet2(nn.Module):
     warped-refinement FlowNetS passes, the FlowNetSD branch and
     FlowNetFusion, with bilinear and nearest upsampling, ``resample2d``
     warps and ``channel_norm`` error magnitudes between them. Input: (B, 6,
-    H, W), two stacked normalised frames; output (B, 2, H, W).
+    H, W), two stacked normalised frames; output (B, 2, H, W). Each sub-net
+    gives its finest flow (flow2), in training as in evaluation, as the
+    reference takes ``[0]`` of a training pyramid.
 
     As the JAX package has it, the SD branch's flow is divided by
     ``div_flow`` (``jafpro_tpu/models/flownet.py:410``) where the other
-    branches multiply."""
+    branches multiply. ``batch_norm`` reaches every sub-net.
+    ``warp_padding`` is "zeros" (the JAX package's ``resample2d``) or
+    "border" (flownet2-pytorch's ``resample2d_cuda``, which clamps the
+    corner indices)."""
 
     def __init__(self, div_flow: float = 20.0,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 batch_norm: bool = True, warp_padding: str = "zeros"):
         super().__init__()
         self.div_flow = div_flow
-        self.flownetc = FlowNetC(compute_dtype)
-        self.flownets_1 = FlowNetS(compute_dtype=compute_dtype)
-        self.flownets_2 = FlowNetS(compute_dtype=compute_dtype)
-        self.flownets_d = FlowNetSD(compute_dtype)
-        self.flownetfusion = FlowNetFusion(compute_dtype)
+        self.warp_padding = warp_padding
+        kw = {"compute_dtype": compute_dtype, "batch_norm": batch_norm}
+        self.flownetc = FlowNetC(**kw)
+        self.flownets_1 = FlowNetS(**kw)
+        self.flownets_2 = FlowNetS(**kw)
+        self.flownets_d = FlowNetSD(**kw)
+        self.flownetfusion = FlowNetFusion(**kw)
         self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -293,23 +323,34 @@ class FlowNet2(nn.Module):
         div = self.div_flow
         img0, img1 = x[:, :3], x[:, 3:]
 
-        def refine_input(flow):
-            warped = resample2d(img1, flow)
-            return torch.cat([x, warped, flow / div,
-                              channel_norm(img0 - warped)], 1)
+        def warp(flow):
+            """(img1 warped by ``flow``, |img0 - it| over channels)."""
+            with span("flow2.warp", device=True, n=img1.numel()):
+                warped = resample2d(img1, flow, self.warp_padding)
+                return warped, channel_norm(img0 - warped)
 
-        flow_c = resize_bilinear(self.flownetc(img0, img1) * div, (H, W),
-                                 align_corners=False)
-        flow_s1 = resize_bilinear(self.flownets_1(refine_input(flow_c)) * div,
-                                  (H, W), align_corners=False)
-        flow_s2 = resize_nearest(self.flownets_2(refine_input(flow_s1)) * div,
-                                 (H, W))
-        flow_sd = resize_nearest(self.flownets_d(x) / div, (H, W))
-        diff_s2 = channel_norm(img0 - resample2d(img1, flow_s2))
-        diff_sd = channel_norm(img0 - resample2d(img1, flow_sd))
-        return self.flownetfusion(torch.cat(
-            [img0, flow_sd, flow_s2, channel_norm(flow_sd),
-             channel_norm(flow_s2), diff_sd, diff_s2], 1))
+        def refine_input(flow):
+            warped, err = warp(flow)
+            return torch.cat([x, warped, flow / div, err], 1)
+
+        with span("flow2.c", device=True):
+            flow_c = resize_bilinear(self.flownetc(img0, img1) * div, (H, W),
+                                     align_corners=False)
+        s1_in = refine_input(flow_c)
+        with span("flow2.s1", device=True):
+            flow_s1 = resize_bilinear(self.flownets_1(s1_in) * div, (H, W),
+                                      align_corners=False)
+        s2_in = refine_input(flow_s1)
+        with span("flow2.s2", device=True):
+            flow_s2 = resize_nearest(self.flownets_2(s2_in) * div, (H, W))
+        with span("flow2.sd", device=True):
+            flow_sd = resize_nearest(self.flownets_d(x) / div, (H, W))
+        diff_s2 = warp(flow_s2)[1]
+        diff_sd = warp(flow_sd)[1]
+        with span("flow2.fusion", device=True):
+            return self.flownetfusion(torch.cat(
+                [img0, flow_sd, flow_s2, channel_norm(flow_sd),
+                 channel_norm(flow_s2), diff_sd, diff_s2], 1))
 
 
 def flownet2_preprocess(frames: torch.Tensor,

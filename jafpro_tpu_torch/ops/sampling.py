@@ -86,18 +86,25 @@ def grid_sample(
             + corner(y1i, x1i, wy * wx))
 
 
-def resample2d(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def resample2d(image: torch.Tensor, flow: torch.Tensor,
+               padding_mode: str = "zeros") -> torch.Tensor:
     """Backward-warp ``image`` (B, C, H, W) by a pixel-displacement
     ``flow`` (B, 2, H, W), channel 0 = dx, 1 = dy: output(p) =
-    image(p + flow(p)), bilinear, zero padding (the reference's
-    ``resample2d_cuda``). As the JAX package computes it: the sample
-    point is normalised with align corners and handed to
-    ``grid_sample``."""
+    image(p + flow(p)), bilinear. ``padding_mode`` "zeros" is the JAX
+    package's: the sample point is normalised with align corners and
+    handed to ``grid_sample``, zero outside the image. "border" is
+    flownet2-pytorch's ``resample2d_cuda``: the four corners' indices are
+    clamped to the image at the pixel coordinates themselves."""
     H, W = flow.shape[-2:]
     ys = torch.arange(H, dtype=flow.dtype, device=flow.device)
     xs = torch.arange(W, dtype=flow.dtype, device=flow.device)
     sx = xs[None, None, :] + flow[:, 0]
     sy = ys[None, :, None] + flow[:, 1]
+    if padding_mode == "border":
+        return grid_sample(image, torch.stack([sx, sy], dim=-1),
+                           padding_mode="border", pixel_coords=True)
+    if padding_mode != "zeros":
+        raise ValueError(f"unsupported padding_mode: {padding_mode}")
     gx = 2.0 * sx / (W - 1) - 1.0
     gy = 2.0 * sy / (H - 1) - 1.0
     return grid_sample(image, torch.stack([gx, gy], dim=-1),

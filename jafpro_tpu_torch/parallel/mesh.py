@@ -21,6 +21,11 @@ three places where a batch's samples meet take the global batch:
 * ``TrainState.grads`` averages each gradient over the ranks
   (``reduce_gradients``).
 
+Spans (``utils/profiling.py``): ``mesh.reduce`` around
+``reduce_gradients`` (``n``: the bytes reduced) and ``mesh.stats`` around
+each all-reduce of ``sum_over_ranks``, forward and backward (``n``: 1, the
+all-reduces), both on the device's stream.
+
 The convention: each rank's loss is its shard's share, scaled so that the
 mean over the ranks is the global-batch loss (a plain mean over an equal
 shard already is; ``bce_masked`` scales by the world size). Gradients are
@@ -44,6 +49,8 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, \
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from jafpro_tpu_torch.utils.profiling import span
 
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
     "jafpro_active_mesh", default=None)
@@ -107,13 +114,15 @@ class _SumOverRanks(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
-        return mesh.all_reduce(x.clone())
+        with span("mesh.stats", device=True, n=1):
+            return mesh.all_reduce(x.clone())
 
     @staticmethod
     def backward(ctx, g):
         # every rank's output is the sum, so each input's gradient is the
         # sum of the outputs' gradients over the ranks
-        return ctx.mesh.all_reduce(g.clone()), None
+        with span("mesh.stats", device=True, n=1):
+            return ctx.mesh.all_reduce(g.clone()), None
 
 
 def sum_over_ranks(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -139,13 +148,15 @@ def reduce_gradients(grads: Sequence[torch.Tensor], mesh: Mesh) -> None:
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for g in grads:
         by_dtype.setdefault(g.dtype, []).append(g)
-    for gs in by_dtype.values():
-        flat = torch.cat([g.reshape(-1) for g in gs])
-        mesh.all_reduce(flat).div_(mesh.world)
-        i = 0
-        for g in gs:
-            g.copy_(flat[i:i + g.numel()].view_as(g))
-            i += g.numel()
+    nbytes = sum(g.numel() * g.element_size() for g in grads)
+    with span("mesh.reduce", device=True, n=nbytes):
+        for gs in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in gs])
+            mesh.all_reduce(flat).div_(mesh.world)
+            i = 0
+            for g in gs:
+                g.copy_(flat[i:i + g.numel()].view_as(g))
+                i += g.numel()
 
 
 def create_mesh(n_devices: Optional[int] = None,

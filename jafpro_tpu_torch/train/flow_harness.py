@@ -2,7 +2,10 @@
 ``jafpro_tpu/train/flow_harness.py``; reference
 ``src/flownet2_pytorch/main.py``): FlowNetSD or FlowNetC trained with the
 multi-scale flow loss, Adam at optax's defaults, batch norm in training
-mode with its running statistics moved as flax moves them.
+mode with its running statistics moved as flax moves them; and FlowNet2
+as flownet2-pytorch trains it by default (``"2"``: no batch norm, its
+``resample2d`` edges, ``flownet2_preprocess`` of the raw frames, the L1
+loss on the fused full-resolution flow with the EPE beside it).
 
 Batches are the JAX harness's: numpy NHWC pairs (B, H, W, 6) and flows
 (B, H, W, 2), from ``synthetic_flow_batch`` or a
@@ -13,10 +16,15 @@ and the loss stay float32. ``save_flow_state`` / ``restore_flow_state``
 cover ``--resume`` with one ``.npz`` of flax-layout trees: ``params``,
 ``batch_stats`` and the Adam moments ``opt/mu``, ``opt/nu``,
 ``opt/count``. There is no CLI, as in the JAX package.
+
+A step records the host span ``flow.step`` around the device spans
+``flow.forward``, ``flow.backward`` and ``flow.update``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import re
 from typing import Callable, Dict, Optional, Tuple, Union
@@ -30,11 +38,15 @@ from jafpro_tpu_torch.checkpoints import flatten, load_params_npz
 from jafpro_tpu_torch.device import resolve_device
 from jafpro_tpu_torch.models.common import init_params_
 from jafpro_tpu_torch.models.flownet import (
-    FlowNetC, FlowNetSD, multiscale_flow_loss)
+    FlowNet2, FlowNetC, FlowNetSD, epe, flownet2_preprocess,
+    multiscale_flow_loss)
 from jafpro_tpu_torch.ops.sampling import resample2d
 from jafpro_tpu_torch.train.common import adam
+from jafpro_tpu_torch.utils.profiling import span
 
-MODELS = {"sd": FlowNetSD, "c": FlowNetC}
+MODELS = {"sd": FlowNetSD, "c": FlowNetC,
+          "2": functools.partial(FlowNet2, batch_norm=False,
+                                 warp_padding="border")}
 _STATE_RE = re.compile(r"^flow_state_iter_(\d+)\.npz$")
 
 
@@ -106,9 +118,12 @@ def make_flow_train_step(model_name: str = "sd", lr: float = 1e-4,
                          compute_dtype: str = "float32",
                          device: Union[str, torch.device] = "cuda"
                          ) -> Tuple[Callable, Callable]:
-    """(init_fn, step_fn) of the multi-scale flow trainer, ``model_name``
-    "sd" (FlowNetSD on the stacked pair) or "c" (FlowNetC on the two
-    images).
+    """(init_fn, step_fn) of the flow trainer, ``model_name`` "sd"
+    (FlowNetSD on the stacked pair) or "c" (FlowNetC on the two images),
+    both with the multi-scale loss, or "2" (FlowNet2 without batch norm on
+    the pair of raw 0..255 frames, mean-subtracted and scaled by
+    ``flownet2_preprocess``; the loss is mean |fused - target| over (B, 2,
+    H, W), flownet2-pytorch's ``L1Loss``).
 
     ``init_fn(generator, sample_pairs=None)`` builds the net on ``device``
     with flax's initialisers drawn from the CPU ``torch.Generator`` (the
@@ -125,22 +140,34 @@ def make_flow_train_step(model_name: str = "sd", lr: float = 1e-4,
     def init_fn(generator: torch.Generator,
                 sample_pairs: Optional[np.ndarray] = None
                 ) -> FlowTrainState:
-        model = init_params_(MODELS[model_name](dtype), generator)
+        model = init_params_(MODELS[model_name](compute_dtype=dtype),
+                             generator)
         return FlowTrainState(model.to(dev), lr)
 
-    def step_fn(state: FlowTrainState, pairs, target):
-        x = _nchw(pairs, dev)
-        t = _nchw(target, dev)
-        model = state.model.train()
+    def forward(model, x, t):
+        if model_name == "2":
+            frames = torch.stack([x[:, :3], x[:, 3:]], 2)
+            fused = model(flownet2_preprocess(frames))
+            return (fused - t).abs().mean(), epe(fused, t)
         if model_name == "sd":
             out = model(x, train_mode=True)
         else:
             out = model(x[:, :3], x[:, 3:], train_mode=True)
-        loss, epev = multiscale_flow_loss(out, t)
-        state.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        state.opt.step()
-        state.step += 1
+        return multiscale_flow_loss(out, t)
+
+    def step_fn(state: FlowTrainState, pairs, target):
+        with span("flow.step", item=state.step):
+            x = _nchw(pairs, dev)
+            t = _nchw(target, dev)
+            model = state.model.train()
+            with span("flow.forward", device=True):
+                loss, epev = forward(model, x, t)
+            with span("flow.backward", device=True):
+                state.opt.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("flow.update", device=True):
+                state.opt.step()
+            state.step += 1
         return state, {"loss": loss.detach(), "epe": epev.detach()}
 
     return init_fn, step_fn

@@ -286,6 +286,62 @@ def test_correlation_launch_counts(cuda):
         assert OC.correlation.backward_launches - bwd == want
 
 
+def test_flownet2_bfloat16_step_correlation_matches_plain(cuda,
+                                                        monkeypatch):
+    """A FlowNet2 harness step ("2", bfloat16, batch 8 at 256²) hands B4
+    bfloat16 (8, 256, 32, 32) features: one forward and one backward
+    launch; on those features and the step's own gradient of the volume
+    the kernels are within twice the plain bfloat16 form's error against
+    float32 (forward max abs, backward relative L2), as the scenes of
+    ``test_correlation_kernels_match_plain`` are held."""
+    from jafpro_tpu_torch.models import flownet
+    from jafpro_tpu_torch.train.flow_harness import (
+        make_flow_train_step, synthetic_flow_batch)
+
+    OC = importlib.import_module("jafpro_tpu_torch.ops.correlation")
+    seen = {}
+    real = flownet.correlation
+
+    def spy(f1, f2, md, s2):
+        out = real(f1, f2, md, s2)
+        seen["f"] = (f1.detach(), f2.detach(), md, s2)
+        out.register_hook(lambda g: seen.setdefault("g", g.detach()))
+        return out
+
+    monkeypatch.setattr(flownet, "correlation", spy)
+    init, step = make_flow_train_step("2", lr=1e-3, compute_dtype="bfloat16",
+                                      device=cuda)
+    state = init(torch.Generator().manual_seed(0))
+    pairs, flow = synthetic_flow_batch(np.random.RandomState(0), 8, 256)
+    counts = (OC.correlation.launches, OC.correlation.backward_launches)
+    step(state, 255.0 * pairs, 8.0 * flow)
+    torch.cuda.synchronize()
+    assert (OC.correlation.launches, OC.correlation.backward_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    f1, f2, md, s2 = seen["f"]
+    g = seen["g"]
+    assert f1.dtype == g.dtype == torch.bfloat16
+    assert tuple(f1.shape) == (8, 256, 32, 32) and (md, s2) == (20, 2)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm()
+                     / b.double().norm().clamp_min(1e-30))
+
+    ker = OC.correlation_cuda(f1, f2, md, s2)
+    k1, k2 = OC.correlation_backward_cuda(g, f1, f2, md, s2)
+    a, b = f1.float().requires_grad_(), f2.float().requires_grad_()
+    r32 = OC.correlation_reference(a, b, md, s2)
+    r1, r2 = torch.autograd.grad(r32, (a, b), g.float())
+    a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    plain = OC.correlation_reference(a, b, md, s2)
+    p1, p2 = torch.autograd.grad(plain, (a, b), g)
+    fk = float((ker.float() - r32.detach()).abs().max())
+    fp = float((plain.detach().float() - r32.detach()).abs().max())
+    bk = max(rel(k1, r1), rel(k2, r2))
+    bp = max(rel(p1, r1), rel(p2, r2))
+    assert fk <= 2 * fp and bk <= 2 * bp, (fk, fp, bk, bp)
+
+
 def test_flow_step_card_vs_cpu(cuda):
     """FlowNetC's forward and one SGD harness step at 64², batch 4, on the
     card and on the CPU (``chip_smoke.flow_reference``: forward 1e-4,

@@ -87,6 +87,26 @@ def test_rank_helpers_import_no_jax():
     assert not bad, bad
 
 
+def test_flownet2_reference_imports_nothing_of_the_port():
+    """The benchmark's FlowNet2 reference imports neither the port nor
+    JAX, and its trainer turns TF32 off."""
+    path = os.path.join(ROOT, "benchmark", "reference", "flownet2.py")
+    names = list(imported_names(path))
+    bad = [n for n in names if FORBIDDEN.match(n)
+           or re.match(r"^jafpro_tpu_torch(\.|$)", n)]
+    assert not bad, bad
+    sys.path.insert(0, ROOT)
+    from benchmark.reference import flownet2
+
+    cfg = {"optimizer_lr": 1e-3, "optimizer_betas": [0.9, 0.999],
+           "optimizer_eps": 1e-8, "optimizer_weight_decay": 0.0}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 \
+        = True
+    flownet2.Trainer(flownet2.FlowNetFusion(), cfg)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
 @pytest.mark.parametrize("package", ["", "geometry", "ops", "train",
                                      "parallel"])
 def test_package_exports_match_jax(package):
